@@ -1,0 +1,287 @@
+"""Device scene assembly: flat per-model tables + the instance table.
+
+Port of :mod:`dust_tpu.render.scene` with the fields the headline frame
+reads. Per-model arrays are stacked over models (leading ``M`` axis,
+padded to the largest leaf count); per-instance arrays have a leading
+``I`` axis. Unsigned 32-bit words (leaf masks, packed albedo) are kept as
+int32 tensors holding the same bit patterns, because torch's ``uint32``
+supports few operations.
+
+The HDDA traversal tables (``hdda_*``) hold the contents of the Pallas
+tables (:func:`dust_tpu.ops.pallas_trace.build_pallas_tables`) laid out
+flat instead of in (8, 128) tiles; see :mod:`dust_tpu_torch.ops.hdda`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from dust_tpu.vox.loader import VoxScene
+from dust_tpu_torch.ops.hdda import build_hdda_tables, stack_tables
+
+__all__ = ["DeviceScene", "build_device_scene", "scene_from_numpy",
+           "leaf_layout", "material_layout", "pad_rows_past_dead_zone"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceScene:
+    """All scene state the frame reads, as tensors on one device."""
+
+    mask_lo: torch.Tensor          # (M, Lmax) int32 (u32 bits)
+    mask_hi: torch.Tensor          # (M, Lmax) int32 (u32 bits)
+    leaf_origin: torch.Tensor      # (M, Lmax, 3) int32
+    avg_albedo: torch.Tensor       # (M, Lmax) int32 (R10G10B10A2 bits)
+    model_aabb_min: torch.Tensor   # (M, 3) float32
+    model_aabb_max: torch.Tensor   # (M, 3) float32
+    # Denormalised per-voxel shading rows, 16 voxels per row: row =
+    # (flat_row*64 + bit) >> 4, word = bit & 15; each word is
+    # R | G<<8 | B<<16 | palette_idx<<24.
+    voxel_attr: torch.Tensor       # (>=F*4, 16) int32
+    # HDDA traversal tables (ops/hdda.py layout).
+    hdda_l1: torch.Tensor          # (M, 512) int32 packed L1 nibbles
+    hdda_l2: torch.Tensor          # (M, 4096, 4) int32 [w0, w1, rank0, rank1]
+    hdda_mask: torch.Tensor        # (M, CL*1024, 2) int32 [mask_lo, mask_hi]
+    obj_to_world: torch.Tensor     # (I, 3, 4) float32
+    world_to_obj: torch.Tensor     # (I, 3, 4) float32
+    prev_obj_to_world: torch.Tensor  # (I, 3, 4) float32
+    # Static metadata (python ints).
+    inst_model: tuple = ()         # per-instance model slot
+    hdda_chunks: tuple = ()        # per-model real 1024-leaf mask chunks
+    leaf_base: tuple = ()          # per-model flat leaf-row base
+    leaf_cap: tuple = ()           # per-model flat leaf-row capacity
+    gi_cell_cap: tuple = ()        # per-model dense-GI cell capacity
+
+    @property
+    def num_instances(self) -> int:
+        return len(self.inst_model)
+
+    @property
+    def num_models(self) -> int:
+        return self.mask_lo.shape[0]
+
+    @property
+    def inst_leaf_base(self) -> tuple:
+        return tuple(self.leaf_base[m] for m in self.inst_model)
+
+    @property
+    def device(self) -> torch.device:
+        return self.mask_lo.device
+
+    def with_transforms(self, obj_to_world) -> "DeviceScene":
+        """Move instances: new transforms; the current ones become the
+        previous frame's (motion vectors)."""
+        o2w = torch.as_tensor(obj_to_world, dtype=torch.float32,
+                              device=self.device)
+        return dataclasses.replace(
+            self, obj_to_world=o2w, world_to_obj=_invert_affines(o2w),
+            prev_obj_to_world=self.obj_to_world)
+
+
+def _invert_affines(a34: torch.Tensor) -> torch.Tensor:
+    lin = a34[..., :3, :3]
+    t = a34[..., :3, 3]
+    inv = torch.linalg.inv(lin)
+    it = -torch.einsum("...ij,...j->...i", inv, t)
+    return torch.cat([inv, it[..., :, None]], dim=-1)
+
+
+def material_layout(geos) -> tuple[list[int], list[int]]:
+    """Per-model (base, capacity) segments of the shared material pool
+    (256-aligned, ~12.5% headroom, as the reference lays them out)."""
+    bases, caps = [], []
+    base = 0
+    for g in geos:
+        n = len(g.materials)
+        cap = max(256, -(-(n + n // 8) // 256) * 256)
+        bases.append(base)
+        caps.append(cap)
+        base += cap
+    return bases, caps
+
+
+# Row-count padding of the reference's gather-hot tables. The port keeps
+# it so its voxel_attr and dense-GI row layouts are the reference's.
+_GATHER_SMALL_MAX_ROWS = 220_000
+_GATHER_BIG_MIN_ROWS = 524_288
+
+
+def pad_rows_past_dead_zone(rows: int) -> int:
+    if _GATHER_SMALL_MAX_ROWS < rows < _GATHER_BIG_MIN_ROWS:
+        return _GATHER_BIG_MIN_ROWS
+    return rows
+
+
+def leaf_layout(geos) -> tuple[list[int], list[int]]:
+    """Per-model (base, capacity) row segments of the flat leaf tables
+    (64-aligned, ~25% headroom)."""
+    bases, caps = [], []
+    base = 0
+    for g in geos:
+        L = g.num_blocks
+        cap = max(64, -(-(L + L // 4) // 64) * 64)
+        bases.append(base)
+        caps.append(cap)
+        base += cap
+    return bases, caps
+
+
+def _build_voxel_attr(mask_lo, mask_hi, matptr, mat_words):
+    """(R*4, 16) int32 per-voxel shading rows from flat (R,) per-leaf
+    masks and material pointers into the packed material words."""
+    R = mask_lo.shape[0]
+    m64 = (mask_hi.astype(np.uint64) << np.uint64(32)) | mask_lo.astype(
+        np.uint64)
+    occ = ((m64[:, None] >> np.arange(64, dtype=np.uint64)) &
+           np.uint64(1)).astype(np.int32)
+    below = np.cumsum(occ, axis=1, dtype=np.int32) - occ
+    midx = np.minimum(matptr[:, None].astype(np.int64) + below,
+                      len(mat_words) - 1)
+    rgba = np.where(occ.astype(bool), mat_words[midx], np.int32(0))
+    return np.ascontiguousarray(rgba.reshape(R * 4, 16))
+
+
+def build_device_scene(scene: VoxScene, device) -> DeviceScene:
+    """Assemble a :class:`DeviceScene` on ``device`` from a loaded
+    ``.vox`` scene (host work in numpy, one upload per table)."""
+    model_ids = sorted(scene.geometries)
+    geos = [scene.geometries[m] for m in model_ids]
+    id_to_slot = {m: i for i, m in enumerate(model_ids)}
+
+    lmax = max(max((g.num_blocks for g in geos), default=1), 1)
+    lmax = -(-(lmax + lmax // 4) // 64) * 64
+    M = len(geos)
+
+    mask_lo = np.zeros((M, lmax), dtype=np.uint32)
+    mask_hi = np.zeros((M, lmax), dtype=np.uint32)
+    origin = np.zeros((M, lmax, 3), dtype=np.int32)
+    albedo = np.zeros((M, lmax), dtype=np.uint32)
+
+    bases, caps = material_layout(geos)
+    materials = []
+    for i, g in enumerate(geos):
+        L = g.num_blocks
+        mask_lo[i, :L] = g.flat.mask_lo
+        mask_hi[i, :L] = g.flat.mask_hi
+        origin[i, :L] = g.flat.leaf_origin
+        albedo[i, :L] = g.avg_albedo
+        seg = np.zeros(caps[i], dtype=np.int32)
+        seg[: len(g.materials)] = g.materials.astype(np.int32)
+        materials.append(seg)
+    materials = (np.concatenate(materials) if materials
+                 else np.zeros(4, dtype=np.int32))
+
+    per_model = [build_hdda_tables(g.flat) for g in geos]
+    hdda_chunks = tuple(t.mask_chunks for t in per_model)
+    l1, l2, mask = stack_tables(per_model)
+
+    ab_min = np.zeros((M, 3), dtype=np.float32)
+    ab_max = np.full((M, 3), 256.0, dtype=np.float32)
+    for i, g in enumerate(geos):
+        if g.num_blocks:
+            ab_min[i] = g.flat.leaf_origin.min(axis=0)
+            ab_max[i] = g.flat.leaf_origin.max(axis=0) + 4.0
+
+    # Packed material words R | G<<8 | B<<16 | palette_idx<<24, padded as
+    # the reference pads them (the voxel rows clamp pointers into it).
+    m4 = pad_rows_past_dead_zone(max(-(-len(materials) // 4), 1))
+    mat_words = np.zeros(m4 * 4, dtype=np.int32)
+    rgba8 = scene.palette[materials].astype(np.uint32)
+    mat_words[: len(materials)] = (
+        rgba8[:, 0] | (rgba8[:, 1] << 8) | (rgba8[:, 2] << 16)
+        | (materials.astype(np.uint32) << 24)).view(np.int32)
+
+    lbase, lcap = leaf_layout(geos)
+    F = (lbase[-1] + lcap[-1]) if geos else 64
+    flat_lo = np.zeros(F, dtype=np.uint32)
+    flat_hi = np.zeros(F, dtype=np.uint32)
+    flat_mp = np.zeros(F, dtype=np.int32)
+    for i, g in enumerate(geos):
+        L = g.num_blocks
+        b = lbase[i]
+        flat_lo[b:b + L] = g.flat.mask_lo
+        flat_hi[b:b + L] = g.flat.mask_hi
+        flat_mp[b:b + L] = g.flat.material_ptr.astype(np.int64) + bases[i]
+    voxel_attr = _build_voxel_attr(flat_lo, flat_hi, flat_mp, mat_words)
+    va_rows = pad_rows_past_dead_zone(voxel_attr.shape[0])
+    if va_rows > voxel_attr.shape[0]:
+        voxel_attr = np.concatenate(
+            [voxel_attr,
+             np.zeros((va_rows - voxel_attr.shape[0], 16), np.int32)])
+
+    inst_model = tuple(id_to_slot[inst.model_id] for inst in scene.instances)
+    o2w = np.stack([inst.transform[:3, :4] for inst in scene.instances]
+                   ).astype(np.float32) if scene.instances \
+        else np.zeros((0, 3, 4), np.float32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    o2w_t = dev(o2w)
+    return DeviceScene(
+        mask_lo=dev(mask_lo.view(np.int32)),
+        mask_hi=dev(mask_hi.view(np.int32)),
+        leaf_origin=dev(origin),
+        avg_albedo=dev(albedo.view(np.int32)),
+        model_aabb_min=dev(ab_min),
+        model_aabb_max=dev(ab_max),
+        voxel_attr=dev(voxel_attr),
+        hdda_l1=dev(l1), hdda_l2=dev(l2), hdda_mask=dev(mask),
+        obj_to_world=o2w_t,
+        world_to_obj=_invert_affines(o2w_t) if inst_model
+        else torch.zeros((0, 3, 4), device=device),
+        prev_obj_to_world=o2w_t,
+        inst_model=inst_model,
+        hdda_chunks=hdda_chunks,
+        leaf_base=tuple(lbase),
+        leaf_cap=tuple(lcap),
+        gi_cell_cap=tuple(max(64, -(-g.num_blocks // 64) * 64)
+                          for g in geos),
+    )
+
+
+def scene_from_numpy(fields: dict, meta: dict, device) -> DeviceScene:
+    """Carry a reference :class:`dust_tpu.render.scene.DeviceScene` into
+    the port: ``fields`` maps its field names to numpy arrays, ``meta``
+    holds its static tuples (``inst_model``, ``pl_chunks``,
+    ``leaf_base``, ``leaf_cap``, ``gi_cell_cap``). The (8, 128)-tiled
+    Pallas tables are re-laid flat."""
+    M = fields["pl_l1"].shape[0]
+
+    def bits(name):
+        return np.ascontiguousarray(fields[name]).view(np.int32)
+
+    def l2_col(name):
+        return np.asarray(fields[name], np.int32).reshape(M, 4096)
+
+    l1 = np.asarray(fields["pl_l1"], np.int32).reshape(M, 1024)[:, :512]
+    l2 = np.stack([l2_col("pl_l2w0"), l2_col("pl_l2w1"),
+                   l2_col("pl_l2r0"), l2_col("pl_l2r1")], axis=-1)
+    mask = np.stack([np.asarray(fields["pl_mlo"], np.int32).reshape(M, -1),
+                     np.asarray(fields["pl_mhi"], np.int32).reshape(M, -1)],
+                    axis=-1)
+
+    def dev(a, dtype=None):
+        a = np.array(a, dtype=dtype, copy=True, order="C")
+        return torch.from_numpy(a).to(device)
+
+    return DeviceScene(
+        mask_lo=dev(bits("mask_lo")),
+        mask_hi=dev(bits("mask_hi")),
+        leaf_origin=dev(fields["leaf_origin"], np.int32),
+        avg_albedo=dev(bits("avg_albedo")),
+        model_aabb_min=dev(fields["model_aabb_min"], np.float32),
+        model_aabb_max=dev(fields["model_aabb_max"], np.float32),
+        voxel_attr=dev(fields["voxel_attr"], np.int32),
+        hdda_l1=dev(l1), hdda_l2=dev(l2), hdda_mask=dev(mask),
+        obj_to_world=dev(fields["obj_to_world"], np.float32),
+        world_to_obj=dev(fields["world_to_obj"], np.float32),
+        prev_obj_to_world=dev(fields["prev_obj_to_world"], np.float32),
+        inst_model=tuple(int(m) for m in meta["inst_model"]),
+        hdda_chunks=tuple(int(c) for c in meta["pl_chunks"]),
+        leaf_base=tuple(int(b) for b in meta["leaf_base"]),
+        leaf_cap=tuple(int(c) for c in meta["leaf_cap"]),
+        gi_cell_cap=tuple(int(c) for c in meta["gi_cell_cap"]),
+    )
