@@ -14,7 +14,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
    render_frame on the card, checks 6 kernel launches per frame and a
    finite, non-black image, and prints ms/frame and Mrays/s;
 5. renders a 256x144 frame on the card and on the CPU (plain versions)
-   and checks that the two images agree (RMSE < 0.01).
+   and checks that the two images agree (RMSE < 0.01);
+6. the many-instance frame (bench.py --config stress: 3x3 castles + 2
+   teapots, 11 instances, 1920x1080, the dense-cache refresh rotating
+   through budget slices), batched scene-trace route: holds the scene
+   kernel against its plain version on that frame's real rays (>2
+   instances: near-to-far sweep order, per-ray instance skip), then
+   renders 4 frames, checks 6 scene-kernel launches per frame and a
+   finite, non-black image, and prints ms/frame and Mrays/s;
+7. the same frame through the loop route (DUST_PALLAS_SCENE=loop, set
+   in-process and removed afterwards): checks the single-instance
+   kernel's launches per frame (11 per trace: precise 11, ao_fg 11,
+   ao_threshold 11, rough 33; no scene-kernel launch), holds that kernel
+   against its plain version per mode on a 65,536-ray subsample of a
+   recorded launch (>= 99.7% agreement) and times both on the full
+   launch, prints ms/frame and Mrays/s, and checks the loop-route image
+   against the batched-route image of the same frame (RMSE < 0.01);
+8. renders a 128x72 stress frame on the card and on the CPU and checks
+   that the two images agree (RMSE < 0.01).
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails. The last line is the result:
@@ -27,11 +44,17 @@ import subprocess
 import sys
 import time
 
+DEVICE = "cuda:0"
 WIDTH, HEIGHT = 1920, 1080
 FRAMES = 4
 SUBSAMPLE = 65536
 MIN_AGREEMENT = 0.997
-EYE, TARGET = (122.0, 300.61, 54.45), (0.0, 0.0, 0.0)  # bench.py --config gi
+# Camera eyes of bench.py's configs; both look at the origin.
+EYES = {"gi": (122.0, 300.61, 54.45), "stress": (260.0, 420.0, 180.0)}
+STRESS_INSTANCES = 11
+# Scene-kernel launches per frame, per mode.
+SCENE_LAUNCHES = {"precise": 1, "ao_fg": 1, "ao_threshold": 1, "rough": 3}
+REPLACES = "dust_tpu/ops/pallas_trace.py:"
 
 
 def _card() -> str:
@@ -40,7 +63,9 @@ def _card() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def _setup(device, width, height):
+def _setup(device, width, height, config="gi"):
+    """Scene, camera and state of bench.py's ``config`` (gi: castle +
+    animated teapot; stress: procgen.stress_scene, last teapot animated)."""
     from dust_tpu.config import RenderSettings
     from dust_tpu.vox import procgen
     from dust_tpu.vox.loader import load_vox_scene
@@ -52,11 +77,14 @@ def _setup(device, width, height):
 
     settings = RenderSettings(width=width, height=height, gi_cache="dense",
                               traversal_backend="pallas")
-    vox = load_vox_scene(procgen.castle_scene_bytes())
-    anim = procgen.add_teapot(vox)
+    if config == "stress":
+        vox, anim = procgen.stress_scene()
+    else:
+        vox = load_vox_scene(procgen.castle_scene_bytes())
+        anim = procgen.add_teapot(vox)
     scene = build_device_scene(vox, device)
     cam = cameralib.camera_settings(
-        cameralib.look_at(EYE, TARGET), settings.camera.fov,
+        cameralib.look_at(EYES[config], (0.0, 0.0, 0.0)), settings.camera.fov,
         settings.camera.near, settings.camera.far, width, height, device)
     return dict(settings=settings, scene=scene, anim=anim, cam=cam,
                 base_o2w=scene.obj_to_world.cpu().numpy(),
@@ -65,19 +93,70 @@ def _setup(device, width, height):
                 bn=load_blue_noise(device))
 
 
-def _frames(ctx, count, first=0):
-    """Render ``count`` frames (animated teapot); returns the last output."""
+def _render(ctx, f, state):
+    """Frame ``f`` (animated teapot) from ``state``: (output, new state)."""
     from dust_tpu.vox import procgen
     from dust_tpu_torch.render.pipeline import render_frame
 
+    scene = ctx["scene"].with_transforms(
+        procgen.teapot_motion(ctx["base_o2w"], ctx["anim"], f))
+    out, _aux, state = render_frame(
+        scene, state, ctx["cam"], ctx["sky"], ctx["bn"].unitvec3_cosine,
+        ctx["settings"], return_aux=False)
+    return out, state
+
+
+def _frames(ctx, count, first=0):
+    """Render ``count`` frames carrying ctx's state; returns the last
+    output."""
     out = None
     for f in range(first, first + count):
-        scene = ctx["scene"].with_transforms(
-            procgen.teapot_motion(ctx["base_o2w"], ctx["anim"], f))
-        out, _aux, ctx["state"] = render_frame(
-            scene, ctx["state"], ctx["cam"], ctx["sky"],
-            ctx["bn"].unitvec3_cosine, ctx["settings"], return_aux=False)
+        out, ctx["state"] = _render(ctx, f, ctx["state"])
     return out
+
+
+def _timed_frames(ctx, count, first):
+    """``count`` synchronised frames: (last output, seconds per frame)."""
+    import torch
+
+    times, out = [], None
+    for f in range(first, first + count):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _frames(ctx, 1, first=f)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def _check_launches(counts, per_frame, frames, what):
+    print(f"{what} launches over {frames} frames: {counts}")
+    for m, k in per_frame.items():
+        if counts[m] != k * frames:
+            raise SystemExit(f"{what} {m}: {counts[m]} launches, expected "
+                             f"{k * frames}")
+
+
+def _report_frame(label, ctx, out, times, card):
+    """Checks a finite, non-black (H, W, 3) image and prints ms/frame
+    (frames 2 on) and Mrays/s with bench.py's ray accounting."""
+    import torch
+    from dust_tpu_torch.render.pipeline import frame_ray_count
+
+    img = out.float()
+    h, w = ctx["settings"].height, ctx["settings"].width
+    if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
+        raise SystemExit(f"{label}: output is not a finite (H, W, 3) image")
+    mean = float(img.mean())
+    if mean < 0.02:
+        raise SystemExit(f"{label}: output is black (mean {mean:.4f})")
+    rays = frame_ray_count(ctx["scene"], ctx["settings"])
+    steady = times[1:]
+    ms_frame = 1e3 * sum(steady) / len(steady)
+    print(f"frame {w}x{h} {label}: {ms_frame:.2f} ms/frame (frames "
+          f"2-{len(times)}; all: {', '.join(f'{1e3 * t:.1f}' for t in times)}"
+          f" ms), {rays / 1e6:.3f} Mrays/frame, "
+          f"{rays / (ms_frame * 1e3):.1f} Mrays/s, mean {mean:.4f} [{card}]")
 
 
 def _ms(fn, reps):
@@ -94,40 +173,106 @@ def _ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _subsample(args, n_keep, seed=0):
-    """``n_keep`` rays of a recorded launch, active rays first (seeded)."""
+def _subsample(args, n_keep, tables, seed=0):
+    """``n_keep`` rays of a recorded launch whose arguments past the
+    first ``tables`` are per ray (lo and hi bound at 2 and 3 of those),
+    active rays first (seeded)."""
     import numpy as np
     import torch
 
-    rays = list(args[7:])
-    t_min, t_max = rays[2], rays[3]
-    active = torch.nonzero(t_max >= t_min).flatten().cpu().numpy()
-    rest = np.setdiff1d(np.arange(t_min.shape[0]), active)
+    rays = list(args[tables:])
+    lo, hi = rays[2], rays[3]
+    active = torch.nonzero(hi >= lo).flatten().cpu().numpy()
+    rest = np.setdiff1d(np.arange(lo.shape[0]), active)
     rng = np.random.default_rng(seed)
     pick = rng.permutation(active)[:n_keep]
     if len(pick) < n_keep:
         pick = np.concatenate([pick, rng.permutation(rest)[:n_keep - len(pick)]])
-    idx = torch.as_tensor(np.sort(pick), device=t_min.device)
-    return args[:7] + tuple(None if r is None else r[idx].contiguous()
-                            for r in rays)
+    idx = torch.as_tensor(np.sort(pick), device=lo.device)
+    return args[:tables] + tuple(None if r is None else r[idx].contiguous()
+                                 for r in rays)
 
 
-def _compare(mode, out_k, out_p):
-    """Agreement of kernel and plain outputs: (agreement, max |dt|)."""
+def _compare(out_k, out_p):
+    """Agreement of kernel and plain outputs, (agreement, max |dt|): a
+    ray agrees when every integer output is equal and every float output
+    is finite in both or in neither; max |dt| over rays finite in both."""
     import torch
 
-    fused = mode == "ao_fg"
-    ids = (1, 3, 4) if fused else (1, 2, 3)
-    ok = torch.ones_like(out_k[1], dtype=torch.bool)
-    for k in ids:
-        ok &= out_k[k] == out_p[k]
+    ok = torch.ones_like(out_k[0], dtype=torch.bool)
     err = 0.0
-    for k in ((0, 2) if fused else (0,)):
-        both = torch.isfinite(out_k[k]) & torch.isfinite(out_p[k])
-        ok &= torch.isfinite(out_k[k]) == torch.isfinite(out_p[k])
-        if both.any():
-            err = max(err, float((out_k[k][both] - out_p[k][both]).abs().max()))
+    for a, b in zip(out_k, out_p):
+        if a.dtype.is_floating_point:
+            ok &= torch.isfinite(a) == torch.isfinite(b)
+            both = torch.isfinite(a) & torch.isfinite(b)
+            if both.any():
+                err = max(err, float((a[both] - b[both]).abs().max()))
+        else:
+            ok &= a == b
     return float(ok.float().mean()), err
+
+
+def _hold(label, run, run_plain, full, tables, timed=True):
+    """Kernel against plain version on a subsample of the recorded launch
+    ``full`` (fails below MIN_AGREEMENT); with ``timed``, both timed on
+    the full launch. Returns (max |dt|, kernel ms, plain ms)."""
+    import torch
+
+    sub = _subsample(full, SUBSAMPLE, tables)
+    out_k = run(sub)
+    agree, err = _compare(out_k, run_plain(sub))
+    print(f"{label:28s} kernel vs plain on {out_k[0].shape[0]} rays: "
+          f"agreement {agree:.6f} ({int(torch.isfinite(out_k[0]).sum())} "
+          f"finite t), max |dt| {err:.3g}")
+    if agree < MIN_AGREEMENT:
+        raise SystemExit(f"{label}: kernel and plain agree on {agree:.4%}")
+    if not timed:
+        return err, None, None
+    ms = _ms(lambda: run(full), 10)
+    plain_ms = _ms(lambda: run_plain(full), 1)
+    print(f"{label:28s} full launch ({full[tables].shape[0]} rays): kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.1f} ms")
+    return err, ms, plain_ms
+
+
+def _recorded_frame(ctx, f, module, name, on_call):
+    """Renders frame ``f`` (carrying ctx's state) with ``module.name``
+    wrapped so that ``on_call(args, kwargs)`` sees every launch."""
+    launch = getattr(module, name)
+
+    def record(*args, **kw):
+        on_call(args, kw)
+        return launch(*args, **kw)
+
+    setattr(module, name, record)
+    try:
+        out, ctx["state"] = _render(ctx, f, ctx["state"])
+    finally:
+        setattr(module, name, launch)
+    return out
+
+
+def _hold_scene_kernel(hdda, ctx, f, label, timed):
+    """Phase 3's check of the scene kernel on frame ``f``'s real rays: the
+    first launch of each mode. Returns {mode: (max |dt|, ms, plain ms)}."""
+    import torch
+
+    first = {}
+    _recorded_frame(ctx, f, hdda, "hdda", lambda a, kw: first.setdefault(
+        kw["mode"], a + (kw.get("t_ao"),)))
+    torch.cuda.synchronize()
+    held = {}
+    for mode in hdda.MODES:
+        full = first[mode]
+
+        def run(a, m=mode):
+            return hdda.hdda(*a[:11], t_ao=a[11], mode=m)
+
+        def run_plain(a, m=mode):
+            return hdda.hdda_plain(*a[:12], mode=m)
+
+        held[mode] = _hold(f"{label} {mode}", run, run_plain, full, 7, timed)
+    return held
 
 
 def main() -> int:
@@ -145,13 +290,21 @@ def main() -> int:
         return 1
     sys.path.insert(0, here)
     from dust_tpu_torch.ops import hdda
-    from dust_tpu_torch.render.pipeline import frame_ray_count
 
     card = _card()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
-    dev = torch.device("cuda:0")
+    dev = torch.device(DEVICE)
+
+    def reset_counts():
+        for m in hdda.MODES:
+            hdda.LAUNCHES[m] = 0
+            hdda.INSTANCE_LAUNCHES[m] = 0
+
+    def rmse(a, b):
+        return float(np.sqrt(np.mean((a.float().cpu().numpy()
+                                      - b.float().cpu().numpy()) ** 2)))
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -160,96 +313,103 @@ def main() -> int:
 
     # ---- 3. kernel against plain, per mode, on one frame's real rays ---
     ctx = _setup(dev, WIDTH, HEIGHT)
-    recorded = []
-    launch = hdda.hdda
-
-    def record(*args, **kw):
-        recorded.append((args + (kw.get("t_ao"),), kw["mode"]))
-        return launch(*args, **kw)
-
-    hdda.hdda = record
-    try:
-        _frames(ctx, 1)
-    finally:
-        hdda.hdda = launch
-    torch.cuda.synchronize()
-    first = {}
-    for args, mode in recorded:
-        first.setdefault(mode, args)
-    kernels = []
-    for mode in hdda.MODES:
-        full = first[mode]
-        sub = _subsample(full, SUBSAMPLE)
-
-        def run(a, m=mode):
-            return hdda.hdda(*a[:11], t_ao=a[11], mode=m)
-
-        def run_plain(a, m=mode):
-            return hdda.hdda_plain(*a[:12], mode=m)
-
-        agree, err = _compare(mode, run(sub), run_plain(sub))
-        n_hit = int((run(sub)[1] >= 0).sum())
-        print(f"{mode:12s} kernel vs plain on {SUBSAMPLE} rays: agreement "
-              f"{agree:.6f} ({n_hit} hits), max |dt| {err:.3g}")
-        if agree < MIN_AGREEMENT:
-            raise SystemExit(f"{mode}: kernel and plain agree on {agree:.4%}")
-        ms = _ms(lambda: run(full), 10)
-        plain_ms = _ms(lambda: run_plain(full), 1)
-        n_rays = full[7].shape[0]
-        print(f"{mode:12s} full launch ({n_rays} rays): kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.1f} ms")
-        kernels.append(dict(name=f"hdda_scene<{mode}>", route="cuda",
-                            source="dust_tpu_torch/csrc/hdda.cu",
-                            replaces="dust_tpu/ops/pallas_trace.py:1305",
-                            launches=0, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms))
-    del recorded, first
+    held = _hold_scene_kernel(hdda, ctx, 0, "gi hdda_scene", timed=True)
+    kernels = [dict(name=f"hdda_scene<{m}>", route="cuda",
+                    source="dust_tpu_torch/csrc/hdda.cu",
+                    replaces=REPLACES + "1305", launches=0,
+                    max_abs_err=held[m][0], ms=held[m][1],
+                    plain_ms=held[m][2]) for m in hdda.MODES]
 
     # ---- 4. the slice: 4 frames through render_frame on the card -------
-    for m in hdda.MODES:
-        hdda.LAUNCHES[m] = 0
-    times = []
-    for f in range(FRAMES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = _frames(ctx, 1, first=1 + f)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = dict(hdda.LAUNCHES)
-    print(f"launches over {FRAMES} frames: {launches}")
-    expected = {"precise": 1, "ao_fg": 1, "ao_threshold": 1, "rough": 3}
-    for m, per_frame in expected.items():
-        if launches[m] != per_frame * FRAMES:
-            raise SystemExit(f"{m}: {launches[m]} launches, expected "
-                             f"{per_frame * FRAMES}")
+    reset_counts()
+    out, times = _timed_frames(ctx, FRAMES, first=1)
+    _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, FRAMES, "hdda_scene")
     for k in kernels:
-        k["launches"] = launches[k["name"][len("hdda_scene<"):-1]]
-    img = out.float()
-    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(
-            torch.isfinite(img).all()):
-        raise SystemExit("frame output is not a finite (H, W, 3) image")
-    mean = float(img.mean())
-    if mean < 0.02:
-        raise SystemExit(f"frame output is black (mean {mean:.4f})")
-    rays = frame_ray_count(ctx["scene"], ctx["settings"])
-    steady = times[1:]
-    ms_frame = 1e3 * sum(steady) / len(steady)
-    print(f"frame {WIDTH}x{HEIGHT} castle+teapot dense GI: "
-          f"{ms_frame:.2f} ms/frame (frames 2-{FRAMES}; all: "
-          f"{', '.join(f'{1e3 * t:.1f}' for t in times)} ms), "
-          f"{rays / 1e6:.3f} Mrays/frame, {rays / (ms_frame * 1e3):.1f} Mrays/s, "
-          f"mean {mean:.4f} [{card}]")
-    del ctx
+        k["launches"] = hdda.LAUNCHES[k["name"][len("hdda_scene<"):-1]]
+    _report_frame("castle+teapot dense GI", ctx, out, times, card)
+    del ctx, out
 
     # ---- 5. the same frame small, on the card and on the CPU -----------
-    imgs = []
-    for d in (dev, torch.device("cpu")):
-        small = _setup(d, 256, 144)
-        imgs.append(_frames(small, 2).float().cpu().numpy())
-    rmse = float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2)))
-    print(f"256x144, 2 frames: card vs CPU plain RMSE {rmse:.5f}")
-    if not rmse < 0.01:
-        raise SystemExit(f"card and CPU frames differ: RMSE {rmse:.5f}")
+    imgs = [_frames(_setup(d, 256, 144), 2) for d in (dev, torch.device("cpu"))]
+    err = rmse(imgs[0], imgs[1])
+    print(f"256x144, 2 frames: card vs CPU plain RMSE {err:.5f}")
+    if not err < 0.01:
+        raise SystemExit(f"card and CPU frames differ: RMSE {err:.5f}")
+
+    # ---- 6. the stress frame, batched route ----------------------------
+    stress = _setup(dev, WIDTH, HEIGHT, "stress")
+    if stress["scene"].num_instances != STRESS_INSTANCES:
+        raise SystemExit(f"stress scene: {stress['scene'].num_instances} "
+                         f"instances, expected {STRESS_INSTANCES}")
+    _hold_scene_kernel(hdda, stress, 0, "stress hdda_scene", timed=False)
+    reset_counts()
+    out, times = _timed_frames(stress, FRAMES, first=1)
+    _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, FRAMES, "hdda_scene")
+    _check_launches(hdda.INSTANCE_LAUNCHES, dict.fromkeys(hdda.MODES, 0),
+                    FRAMES, "hdda_instance")
+    _report_frame("stress, batched route", stress, out, times, card)
+
+    # ---- 7. the stress frame, loop route -------------------------------
+    first = 1 + FRAMES
+    os.environ["DUST_PALLAS_SCENE"] = "loop"
+    try:
+        busiest = {}
+
+        def keep_busiest(args, kw):
+            """Per mode, the launch with the most active rays."""
+            args = args + (None,) * (8 - len(args))
+            n_live = int((args[6] > args[5]).sum())
+            if n_live > busiest.get(kw["mode"], (-1,))[0]:
+                busiest[kw["mode"]] = (n_live, args)
+
+        _recorded_frame(stress, first, hdda, "hdda_instance", keep_busiest)
+        reset_counts()
+        out, times = _timed_frames(stress, FRAMES, first=first + 1)
+        per_trace = {m: STRESS_INSTANCES * k for m, k in SCENE_LAUNCHES.items()}
+        _check_launches(hdda.INSTANCE_LAUNCHES, per_trace, FRAMES,
+                        "hdda_instance")
+        _check_launches(hdda.LAUNCHES, dict.fromkeys(hdda.MODES, 0), FRAMES,
+                        "hdda_scene")
+        launches = dict(hdda.INSTANCE_LAUNCHES)
+        _report_frame("stress, loop route", stress, out, times, card)
+        torch.cuda.synchronize()
+        for mode in hdda.MODES:
+            full = busiest[mode][1]
+
+            def run(a, m=mode):
+                return hdda.hdda_instance(*a[:8], mode=m)
+
+            def run_plain(a, m=mode):
+                return hdda.hdda_instance_plain(*a[:8], m)
+
+            err, ms, plain_ms = _hold(f"stress hdda_instance {mode}", run,
+                                      run_plain, full, 3)
+            kernels.append(dict(
+                name=f"hdda_instance<{mode}>", route="cuda",
+                source="dust_tpu_torch/csrc/hdda.cu",
+                replaces=REPLACES + ("1397" if mode == "ao_fg" else "1335"),
+                launches=launches[mode], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms))
+        del busiest
+        # One frame from one state through both routes.
+        f = first + 1 + FRAMES
+        img_loop, _ = _render(stress, f, stress["state"])
+    finally:
+        os.environ.pop("DUST_PALLAS_SCENE", None)
+    img_batched, _ = _render(stress, f, stress["state"])
+    err = rmse(img_loop, img_batched)
+    print(f"stress frame {f}: loop vs batched route RMSE {err:.5f}")
+    if not err < 0.01:
+        raise SystemExit(f"loop and batched routes differ: RMSE {err:.5f}")
+    del stress, out, img_loop, img_batched
+
+    # ---- 8. the stress frame small, on the card and on the CPU ---------
+    imgs = [_frames(_setup(d, 128, 72, "stress"), 2)
+            for d in (dev, torch.device("cpu"))]
+    err = rmse(imgs[0], imgs[1])
+    print(f"128x72 stress, 2 frames: card vs CPU plain RMSE {err:.5f}")
+    if not err < 0.01:
+        raise SystemExit(f"card and CPU stress frames differ: RMSE {err:.5f}")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

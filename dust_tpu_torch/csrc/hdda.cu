@@ -1,19 +1,33 @@
-// Batched multi-instance HDDA voxel traversal for Hopper (sm_90a).
+// HDDA voxel traversal for Hopper (sm_90a): two kernels around one
+// device function, traverse<MODE>, the port of _traverse_core.
 //
-// Replaces the TPU kernel dust_tpu/ops/pallas_trace.py::_make_scene_kernel
-// (launched by _trace_pallas_scene, pallas_call at pallas_trace.py:1305)
-// and the _traverse_core it runs. It computes what that kernel computes,
-// lane for lane: per ray and per instance (in model order) the world ray
-// goes to object space, is normalised, clipped to the model AABB and to
-// the closest hit so far, marches the L1 skip field / L2 block bitmap to
-// a candidate block, resolves the leaf row by popcount rank, runs the
-// 4x4x4 micro DDA over the leaf mask and merges the closest hit. Modes:
-// PRECISE, AO_THRESHOLD, ROUGH, AO_FG (template parameter). The plain
-// PyTorch version of the same function is hdda_plain in ops/hdda.py.
+// hdda_kernel replaces the TPU kernel dust_tpu/ops/pallas_trace.py::
+// _make_scene_kernel (launched by _trace_pallas_scene, pallas_call at
+// pallas_trace.py:1305). It computes what that kernel computes, lane for
+// lane: per ray and per instance (in the caller's sweep order) the world
+// ray goes to object space, is normalised, clipped to the model AABB and
+// to the closest hit so far, marches the L1 skip field / L2 block bitmap
+// to a candidate block, resolves the leaf row by popcount rank, runs the
+// 4x4x4 micro DDA over the leaf mask and merges the closest hit. An
+// instance whose clipped range is empty for the ray (s_min >= s_stop) is
+// skipped, traversal and merge: the counterpart of the reference's
+// per-tile cull gate, exact because traversal starts only if s_min <
+// s_stop. Its plain PyTorch version is hdda_plain in ops/hdda.py.
 //
-// Iteration caps are per ray, as they are per lane on the TPU: ROUNDS
-// rounds, MARCH_CAP march iterations per round (each one L1 step plus
-// SUBSTEPS in-cell block steps), MICRO_CAP micro steps, and after the
+// hdda_instance_kernel replaces the single-instance TPU kernel
+// _make_kernel (launched by _trace_pallas, pallas_call at :1335, and
+// _trace_pallas_ao_fg, pallas_call at :1397): traverse<MODE> alone on
+// object-space rays with unit directions and s bounds the caller computed
+// (no affine, no box clip, no normalisation, no merge; the loop route of
+// the scene trace does those in PyTorch). Outputs are in s units. Its
+// plain version is hdda_instance_plain in ops/hdda.py.
+//
+// Modes: PRECISE, AO_THRESHOLD, ROUGH, AO_FG (template parameter).
+//
+// Iteration caps are per ray, as they are per lane on the TPU: `rounds`
+// rounds (64 in the scene kernel, the caller's in the instance kernel),
+// MARCH_CAP march iterations per round (each one L1 step plus SUBSTEPS
+// in-cell block steps), MICRO_CAP micro steps, and after the
 // micro loop the voxel it stopped on is tested even if the cap stopped
 // it there. Built with -fmad=false: the only fused multiply-adds are the
 // explicit __fmaf_rn calls, placed where the reference's XLA build
@@ -73,6 +87,23 @@ struct Params {
   int n;
 };
 
+struct InstanceParams {
+  const int* l1;          // (512,) one model's packed L1 nibbles
+  const int4* l2;         // (4096,) [w0, w1, rank0, rank1]
+  const int2* mask;       // (rows,) [lo, hi]
+  const float* origin;    // (N, 3) object space
+  const float* dir;       // (N, 3) object space, unit
+  const float* s_min;     // (N,)
+  const float* s_stop;    // (N,)
+  const float* s_ao;      // (N,) AO_FG only
+  float* s0;              // hit_s, or ao_s
+  float* s1;              // fg_s (AO_FG)
+  int* row;               // row, or fg_row
+  int* bit;               // bit (not AO_FG)
+  int n;
+  int rounds;
+};
+
 struct Ray {
   float o[3], d[3], r[3], p01[3];
   int sgn[3];
@@ -118,6 +149,15 @@ __device__ __forceinline__ void slab3(const Ray& ray, const float lo[3],
   }
   *t_in = fmaxf(fmaxf(fminf(a[0], b[0]), fminf(a[1], b[1])), fminf(a[2], b[2]));
   *t_out = fminf(fminf(fmaxf(a[0], b[0]), fmaxf(a[1], b[1])), fmaxf(a[2], b[2]));
+}
+
+// Reciprocals, exit-face offsets and step signs of a unit direction.
+__device__ __forceinline__ void set_direction(Ray& ray) {
+  for (int j = 0; j < 3; ++j) {
+    ray.r[j] = safe_rcp(ray.d[j]);
+    ray.p01[j] = ray.d[j] > 0.0f ? 1.0f : 0.0f;
+    ray.sgn[j] = ray.d[j] > 0.0f ? 1 : -1;
+  }
 }
 
 __device__ __forceinline__ void position(const Ray& ray, float s, float p[3]) {
@@ -193,7 +233,7 @@ template <int MODE>
 __device__ CoreOut traverse(const Ray& ray, const int* __restrict__ l1,
                             const int4* __restrict__ l2,
                             const int2* __restrict__ mask, float s_min,
-                            float s_stop, float s_ao) {
+                            float s_stop, float s_ao, int rounds) {
   constexpr bool kCarry = Traits<MODE>::kCarry;
   const float inf = __int_as_float(0x7f800000);
   const float box_lo[3] = {0.0f, 0.0f, 0.0f};
@@ -208,7 +248,7 @@ __device__ CoreOut traverse(const Ray& ray, const int* __restrict__ l1,
   int hit_word = 0;
   int w0 = 0, w1 = 0, rr0 = 0, rr1 = 0, reg_cl = -1;
 
-  for (int rnd = 0; rnd < kRounds && active; ++rnd) {
+  for (int rnd = 0; rnd < rounds && active; ++rnd) {
     if (!kCarry) {
       w0 = 0;
       w1 = 0;
@@ -414,12 +454,8 @@ __device__ void trace_ray(const Params& p, int i) {
     const float dlen = fmaxf(
         sqrtf(__fmaf_rn(dv[2], dv[2], __fmaf_rn(dv[0], dv[0], dv[1] * dv[1]))), 1e-20f);
     const float inv = 1.0f / dlen;
-    for (int j = 0; j < 3; ++j) {
-      ray.d[j] = dv[j] * inv;
-      ray.r[j] = safe_rcp(ray.d[j]);
-      ray.p01[j] = ray.d[j] > 0.0f ? 1.0f : 0.0f;
-      ray.sgn[j] = ray.d[j] > 0.0f ? 1 : -1;
-    }
+    for (int j = 0; j < 3; ++j) ray.d[j] = dv[j] * inv;
+    set_direction(ray);
     // Closest-so-far cap; in AO_FG the far accumulator bounds the walk.
     const float tx = fminf(tx0, MODE == AO_FG ? fg_t : best_t);
     float box_lo[3], box_hi[3];
@@ -431,10 +467,13 @@ __device__ void trace_ray(const Params& p, int i) {
     slab3(ray, box_lo, box_hi, &lo, &hi);
     const float s_min = fmaxf(tn * dlen, lo);
     const float s_stop = fminf(tx * dlen, hi);
+    // Empty range: no traversal, nothing to merge (the cull gate).
+    if (s_min >= s_stop) continue;
     // AO_THRESHOLD's quirk plane is the committed tmax, never box-clipped.
     const float s_ao = MODE == AO_FG ? ta * dlen : tx * dlen;
     CoreOut c = traverse<MODE>(ray, p.l1 + 512 * m, p.l2 + 4096 * m,
-                               p.mask + (size_t)p.rows * m, s_min, s_stop, s_ao);
+                               p.mask + (size_t)p.rows * m, s_min, s_stop, s_ao,
+                               kRounds);
     if (MODE == AO_FG) {
       const float ao_new = c.s0 * inv;
       const float fg_new = c.s1 * inv;
@@ -474,6 +513,31 @@ template <int MODE>
 __global__ void __launch_bounds__(128) hdda_kernel(Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < p.n) trace_ray<MODE>(p, i);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(128) hdda_instance_kernel(InstanceParams p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  Ray ray;
+  for (int j = 0; j < 3; ++j) {
+    ray.o[j] = p.origin[3 * i + j];
+    ray.d[j] = p.dir[3 * i + j];
+  }
+  set_direction(ray);
+  const float s_stop = p.s_stop[i];
+  // AO_THRESHOLD's quirk plane is s_stop itself on this route (the caller
+  // keeps s_stop at the committed tmax); AO_FG takes s_ao as given.
+  const float s_ao = MODE == AO_FG ? p.s_ao[i] : s_stop;
+  const CoreOut c = traverse<MODE>(ray, p.l1, p.l2, p.mask, p.s_min[i], s_stop,
+                                   s_ao, p.rounds);
+  p.s0[i] = c.s0;
+  p.row[i] = c.row;
+  if (MODE == AO_FG) {
+    p.s1[i] = c.s1;
+  } else {
+    p.bit[i] = c.bit;
+  }
 }
 
 }  // namespace
@@ -519,6 +583,41 @@ extern "C" int hdda_launch(int mode, const void* l1, const void* l2,
     case AO_THRESHOLD: hdda_kernel<AO_THRESHOLD><<<blocks, threads, 0, s>>>(p); break;
     case ROUGH: hdda_kernel<ROUGH><<<blocks, threads, 0, s>>>(p); break;
     case AO_FG: hdda_kernel<AO_FG><<<blocks, threads, 0, s>>>(p); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hdda_instance_launch(int mode, const void* l1, const void* l2,
+                                    const void* mask, const void* origin,
+                                    const void* dir, const void* s_min,
+                                    const void* s_stop, const void* s_ao,
+                                    void* s0, void* s1, void* row, void* bit,
+                                    int n, int rounds, void* stream) {
+  InstanceParams p;
+  p.l1 = static_cast<const int*>(l1);
+  p.l2 = static_cast<const int4*>(l2);
+  p.mask = static_cast<const int2*>(mask);
+  p.origin = static_cast<const float*>(origin);
+  p.dir = static_cast<const float*>(dir);
+  p.s_min = static_cast<const float*>(s_min);
+  p.s_stop = static_cast<const float*>(s_stop);
+  p.s_ao = static_cast<const float*>(s_ao);
+  p.s0 = static_cast<float*>(s0);
+  p.s1 = static_cast<float*>(s1);
+  p.row = static_cast<int*>(row);
+  p.bit = static_cast<int*>(bit);
+  p.n = n;
+  p.rounds = rounds;
+  if (n <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case PRECISE: hdda_instance_kernel<PRECISE><<<blocks, threads, 0, s>>>(p); break;
+    case AO_THRESHOLD: hdda_instance_kernel<AO_THRESHOLD><<<blocks, threads, 0, s>>>(p); break;
+    case ROUGH: hdda_instance_kernel<ROUGH><<<blocks, threads, 0, s>>>(p); break;
+    case AO_FG: hdda_instance_kernel<AO_FG><<<blocks, threads, 0, s>>>(p); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,33 +1,45 @@
-"""Batched multi-instance HDDA voxel traversal: tables, plain version, kernel.
+"""HDDA voxel traversal: tables, plain versions, kernels, scene traces.
 
-Port of the Pallas scene kernel :func:`dust_tpu.ops.pallas_trace.
-_make_scene_kernel` around ``_traverse_core``. For every ray, and for
-every instance in model order, it transforms the world ray into object
-space, normalises the direction, clips to the model AABB and to the
-closest hit so far, walks the two-level bitmap hierarchy (a 16³ L1
-chebyshev skip field over 16-voxel cells, a 64³ L2 block bitmap with
-popcount ranks), runs the 4×4×4 Amanatides-Woo micro DDA over the leaf's
-64-bit occupancy mask, and merges the closest hit. Four modes, as in the
-reference: ``precise`` (voxel hits), ``ao_threshold`` (precise plus the
-AO entry-report quirk), ``rough`` (hit = entry of the first occupied
-block) and ``ao_fg`` (ao_threshold below ``t_ao``, rough past it, two
-accumulators).
+Port of the Pallas kernels of :mod:`dust_tpu.ops.pallas_trace`, both
+around ``_traverse_core``:
 
-Three implementations of the same function live here:
+* the batched scene kernel ``_make_scene_kernel``: for every ray, and
+  for every instance in sweep order, it transforms the world ray into
+  object space, normalises the direction, clips to the model AABB and to
+  the closest hit so far, walks the two-level bitmap hierarchy (a 16³ L1
+  chebyshev skip field over 16-voxel cells, a 64³ L2 block bitmap with
+  popcount ranks), runs the 4×4×4 Amanatides-Woo micro DDA over the
+  leaf's 64-bit occupancy mask, and merges the closest hit;
+* the single-instance kernel ``_make_kernel``: the walk alone, on
+  object-space rays with unit directions and s bounds given.
 
-* :func:`hdda_plain` — plain PyTorch, vectorised over rays with masked
+Four modes, as in the reference: ``precise`` (voxel hits),
+``ao_threshold`` (precise plus the AO entry-report quirk), ``rough``
+(hit = entry of the first occupied block) and ``ao_fg`` (ao_threshold
+below ``t_ao``, rough past it, two accumulators).
+
+The scene traces :func:`trace_scene` and :func:`trace_scene_ao_fg` take
+one of the reference's two routes: the batched kernel (the default), or
+with ``DUST_PALLAS_SCENE=loop`` in the environment, read at each call,
+the per-instance loop over the single-instance kernel with the affine,
+box clip and merge in PyTorch.
+
+Three implementations of each kernel's function live here:
+
+* :func:`hdda_plain` / :func:`hdda_instance_plain` — plain PyTorch,
+  vectorised over rays with masked
   ``while mask.any()`` loops. Every iteration cap of the TPU kernel is
   a per-lane cap there (a lane steps once per loop iteration), so the
   plain version reproduces them per lane: ``ROUNDS`` rounds,
   ``MARCH_CAP`` march iterations (each one L1 step plus
   ``SUBSTEPS[mode]`` in-cell block sub-steps) and ``MICRO_CAP`` micro
   steps, with the post-loop test of the voxel the micro loop reached.
-* ``csrc/hdda.cu`` — the CUDA kernel, one thread per ray, the same
+* ``csrc/hdda.cu`` — the CUDA kernels, one thread per ray, the same
   arithmetic in the same order (compiled with ``-fmad=false``; the few
   fused multiply-adds the reference's XLA build contracts are explicit
   on both sides, see :mod:`dust_tpu_torch.ops.fp`).
-* :func:`hdda` — the launch wrapper: the kernel for CUDA tensors, the
-  plain version for CPU tensors, nothing else.
+* :func:`hdda` / :func:`hdda_instance` — the launch wrappers: the kernel
+  for CUDA tensors, the plain version for CPU tensors, nothing else.
 
 Table layout (flat; the reference tiles the same contents in (8, 128)):
 
@@ -59,11 +71,14 @@ import torch
 
 from dust_tpu_torch.ops.fp import fma as _fma
 from dust_tpu_torch.ops.fp import sqrt as _sqrt
-from dust_tpu_torch.ops.traverse import TraceResult
+from dust_tpu_torch.ops.traverse import (TraceResult, clip_to_model_aabb,
+                                         dir_length, xform_dir, xform_point)
 
 __all__ = ["HDDATables", "build_hdda_tables", "stack_tables", "hdda",
-           "hdda_plain", "trace_scene", "trace_scene_ao_fg", "LAUNCHES",
-           "MODES"]
+           "hdda_plain", "hdda_instance", "hdda_instance_plain",
+           "trace_instance", "trace_instance_ao_fg", "front_to_back_ids",
+           "trace_scene", "trace_scene_ao_fg", "LAUNCHES",
+           "INSTANCE_LAUNCHES", "MODES"]
 
 _EPS = 1e-3        # micro-DDA exit epsilon (hit.rint:107)
 _STEP_EPS = 1e-4   # cell-sampling nudge
@@ -78,9 +93,10 @@ _CARRY = ("precise", "ao_fg")
 MODES = ("precise", "ao_threshold", "rough", "ao_fg")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 
-# Kernel launches per mode since the last reset (the plain version on
-# CPU tensors counts nothing).
+# Kernel launches per mode since the last reset, of the scene kernel and
+# of the single-instance kernel (the plain versions count nothing).
 LAUNCHES = {m: 0 for m in MODES}
+INSTANCE_LAUNCHES = {m: 0 for m in MODES}
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +104,9 @@ LAUNCHES = {m: 0 for m in MODES}
 # ---------------------------------------------------------------------------
 
 class HDDATables(NamedTuple):
-    """One model's traversal tables (layout in the module docstring)."""
+    """One model's traversal tables (layout in the module docstring), as
+    numpy arrays when built, or as tensors (one model's slice of a
+    scene's stacked tables) when traced."""
 
     l1: np.ndarray    # (512,) int32
     l2: np.ndarray    # (4096, 4) int32
@@ -213,10 +231,35 @@ def _floor_i(x, scale, hi):
     return torch.clamp(torch.floor(x * scale).int(), 0, hi)
 
 
-def _core(l1, l2, mask, o, d, s_min, s_stop, s_ao, mode):
+def _core(l1, l2, mask, o, d, s_min, s_stop, s_ao, mode, rounds):
     """One instance's traversal for every ray (object space, unit
-    directions, s in object units). Returns (hit_s, hit_row, hit_bit), or
-    (ao_s, fg_s, fg_row) in ``ao_fg`` mode."""
+    directions, s in object units), at most ``rounds`` rounds. Returns
+    (hit_s, hit_row, hit_bit), or (ao_s, fg_s, fg_row) in ``ao_fg``
+    mode.
+
+    A lane starts only if ``s_min < s_stop``, so the walk runs on those
+    lanes alone and the others get the miss outputs: the same results
+    (every cap is per lane), without stepping whole arrays for the few
+    lanes of an instance that most rays miss."""
+    live = s_min < s_stop
+    if bool(live.all()):
+        return _walk(l1, l2, mask, o, d, s_min, s_stop, s_ao, mode, rounds)
+    idx = torch.nonzero(live).flatten()
+    outs = _walk(l1, l2, mask, tuple(v[idx] for v in o),
+                 tuple(v[idx] for v in d), s_min[idx], s_stop[idx],
+                 None if s_ao is None else s_ao[idx], mode, rounds)
+    misses = (float("inf"), float("inf"), -1) if mode == "ao_fg" else (
+        float("inf"), -1, -1)
+    full = []
+    for x, miss in zip(outs, misses):
+        y = torch.full(live.shape, miss, dtype=x.dtype, device=x.device)
+        y[idx] = x
+        full.append(y)
+    return tuple(full)
+
+
+def _walk(l1, l2, mask, o, d, s_min, s_stop, s_ao, mode, rounds):
+    """The body of :func:`_core`, on every lane given."""
     ox, oy, oz = o
     dx, dy, dz = d
     n = ox.shape[0]
@@ -387,7 +430,7 @@ def _core(l1, l2, mask, o, d, s_min, s_stop, s_ao, mode):
             rank = torch.where((cwidx & 1) == 0, ranks[:, 2], ranks[:, 3])
         return rank + _popcount_below(cword, cbit)
 
-    for _rnd in range(ROUNDS):
+    for _rnd in range(rounds):
         if not bool(active.any()):
             break
         if not carry:
@@ -506,7 +549,8 @@ def hdda_plain(l1, l2, mask, inst_model, inst_ids, aff, aabb,
         # to the model box.
         s_ao = t_ao * dlen if fused else (tx * dlen if mode == "ao_threshold"
                                           else None)
-        out = _core(l1[m], l2[m], mask[m], o, d, s_min, s_stop, s_ao, mode)
+        out = _core(l1[m], l2[m], mask[m], o, d, s_min, s_stop, s_ao, mode,
+                    ROUNDS)
         if fused:
             ao_new, fg_new = out[0] * inv, out[1] * inv
             ao_c = ao_new < best_t
@@ -526,6 +570,18 @@ def hdda_plain(l1, l2, mask, inst_model, inst_ids, aff, aabb,
     if fused:
         return best_t, best_i, fg_t, fg_i, best_row
     return best_t, best_i, best_row, best_bit
+
+
+def hdda_instance_plain(l1, l2, mask, origin, direction, s_min, s_stop,
+                        s_ao, mode: str, rounds: int = ROUNDS):
+    """The plain version of the single-instance kernel: same arguments
+    and outputs as :func:`hdda_instance`."""
+    # ao_threshold's quirk plane is s_stop on this route (the reference's
+    # s_thr = s_stop when no s_ao is given).
+    if mode != "ao_fg":
+        s_ao = s_stop if mode == "ao_threshold" else None
+    return _core(l1, l2, mask, origin.unbind(-1), direction.unbind(-1),
+                 s_min, s_stop, s_ao, mode, rounds)
 
 
 # ---------------------------------------------------------------------------
@@ -579,6 +635,9 @@ def _library():
                                     vp, vp, vp, vp, vp,
                                     vp, vp, vp, vp, vp, vp, ci, vp]
         lib.hdda_launch.restype = ci
+        lib.hdda_instance_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp,
+                                             vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.hdda_instance_launch.restype = ci
         _LIB = lib
     return _LIB
 
@@ -593,6 +652,10 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: on {t.device}, rays on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def hdda(l1, l2, mask, inst_model, inst_ids, aff, aabb,
@@ -645,16 +708,14 @@ def hdda(l1, l2, mask, inst_model, inst_ids, aff, aabb,
     t1 = torch.empty(n, dtype=torch.float32, device=dev) if fused else None
     i1 = torch.empty(n, dtype=torch.int32, device=dev) if fused else None
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hdda_launch(
-            _MODE_ID[mode], ptr(l1), ptr(l2), ptr(mask), M, rows,
-            ptr(inst_model), ptr(inst_ids), ptr(aff), ptr(aabb), I,
-            ptr(origin), ptr(direction), ptr(t_min), ptr(t_max), ptr(t_ao),
-            ptr(t0), ptr(i0), ptr(t1), ptr(i1), ptr(row), ptr(bit), n, stream)
+            _MODE_ID[mode], _ptr(l1), _ptr(l2), _ptr(mask), M, rows,
+            _ptr(inst_model), _ptr(inst_ids), _ptr(aff), _ptr(aabb), I,
+            _ptr(origin), _ptr(direction), _ptr(t_min), _ptr(t_max),
+            _ptr(t_ao), _ptr(t0), _ptr(i0), _ptr(t1), _ptr(i1), _ptr(row),
+            _ptr(bit), n, stream)
     if err != 0:
         raise RuntimeError(f"hdda kernel launch failed: CUDA error {err}")
     LAUNCHES[mode] += 1
@@ -663,34 +724,191 @@ def hdda(l1, l2, mask, inst_model, inst_ids, aff, aabb,
     return t0, i0, row, bit
 
 
+def hdda_instance(l1, l2, mask, origin, direction, s_min, s_stop, s_ao=None,
+                  mode: str = "precise", rounds: int = ROUNDS):
+    """One model's traversal of object-space rays: ``l1`` (512,), ``l2``
+    (4096, 4), ``mask`` (rows, 2) int32; ``origin``/``direction`` (N, 3)
+    float32 with unit directions; ``s_min``/``s_stop`` (N,) float32 in s
+    units (a lane with ``s_stop <= s_min`` is inactive); ``ao_fg`` also
+    takes ``s_ao`` (N,); ``ao_threshold``'s quirk plane is ``s_stop``.
+    At most ``rounds`` rounds. Returns (hit_s, row, bit), or in
+    ``ao_fg`` mode (ao_s, fg_s, fg_row), in s units (inf and -1 on miss).
+
+    CPU tensors run :func:`hdda_instance_plain`; CUDA tensors launch the
+    kernel."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if rounds < 0:
+        raise ValueError(f"rounds must be >= 0, got {rounds}")
+    fused = mode == "ao_fg"
+    dev = origin.device
+    n = origin.shape[0]
+    rows = mask.shape[0]
+    _check("l1", l1, torch.int32, (512,), dev)
+    _check("l2", l2, torch.int32, (4096, 4), dev)
+    _check("mask", mask, torch.int32, (rows, 2), dev)
+    _check("origin", origin, torch.float32, (n, 3), dev)
+    _check("direction", direction, torch.float32, (n, 3), dev)
+    _check("s_min", s_min, torch.float32, (n,), dev)
+    _check("s_stop", s_stop, torch.float32, (n,), dev)
+    if fused:
+        if s_ao is None:
+            raise ValueError("mode 'ao_fg' needs s_ao")
+        _check("s_ao", s_ao, torch.float32, (n,), dev)
+    if dev.type == "cpu":
+        return hdda_instance_plain(l1, l2, mask, origin, direction, s_min,
+                                   s_stop, s_ao, mode, rounds)
+    if dev.type != "cuda":
+        raise ValueError(f"hdda_instance: unsupported device {dev}")
+
+    lib = _library()
+    s0 = torch.empty(n, dtype=torch.float32, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    s1 = torch.empty(n, dtype=torch.float32, device=dev) if fused else None
+    bit = None if fused else torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hdda_instance_launch(
+            _MODE_ID[mode], _ptr(l1), _ptr(l2), _ptr(mask), _ptr(origin),
+            _ptr(direction), _ptr(s_min), _ptr(s_stop),
+            _ptr(s_ao if fused else None), _ptr(s0), _ptr(s1), _ptr(row),
+            _ptr(bit), n, rounds, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"hdda_instance kernel launch failed: CUDA error {err}")
+    INSTANCE_LAUNCHES[mode] += 1
+    if fused:
+        return s0, s1, row
+    return s0, row, bit
+
+
+# ---------------------------------------------------------------------------
+# Single-instance entry points (the contracts of trace_instance_pallas and
+# trace_instance_pallas_ao_fg)
+# ---------------------------------------------------------------------------
+
+def _per_ray(x, n, dev):
+    return torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32,
+                                              device=dev), (n,)).contiguous()
+
+
+def _instance_rays(origin, direction, *ts):
+    """Unit directions, the direction lengths, and each per-ray t bound
+    times the length (s units)."""
+    n = origin.shape[0]
+    dev = origin.device
+    dlen = dir_length(direction)
+    dn = (direction / dlen[:, None]).contiguous()
+    return (origin.contiguous(), dn, dlen,
+            *(_per_ray(t, n, dev) * dlen for t in ts))
+
+
+def trace_instance(tables: HDDATables, origin, direction, t_min, t_max,
+                   mode: str = "precise", rounds: int = ROUNDS):
+    """Trace rays against one model (``tables`` as tensors): object-space
+    rays, unnormalised directions, parameter-space t bounds. Returns
+    (t, row, bit) with t = inf on miss. Unlike the scene kernel, which
+    multiplies by 1/|d|, the results are divided by |d|, as the
+    reference does on this route."""
+    o, dn, dlen, s_min, s_stop = _instance_rays(origin, direction, t_min,
+                                                t_max)
+    hit_s, row, bit = hdda_instance(tables.l1, tables.l2, tables.mask, o, dn,
+                                    s_min, s_stop, mode=mode, rounds=rounds)
+    return hit_s / dlen, row, bit
+
+
+def trace_instance_ao_fg(tables: HDDATables, origin, direction, t_min, t_ao,
+                         t_max, rounds: int = ROUNDS):
+    """Fused AO + final-gather trace against one model. ``t_ao`` may
+    exceed ``t_max``: the quirk plane then never fires. Returns (ao_t,
+    fg_t, fg_row) with t = inf on miss."""
+    o, dn, dlen, s_min, s_ao, s_stop = _instance_rays(
+        origin, direction, t_min, t_ao, t_max)
+    ao_s, fg_s, fg_row = hdda_instance(tables.l1, tables.l2, tables.mask, o,
+                                       dn, s_min, s_stop, s_ao, mode="ao_fg",
+                                       rounds=rounds)
+    return ao_s / dlen, fg_s / dlen, fg_row
+
+
 # ---------------------------------------------------------------------------
 # Scene-level entry points (the contracts of trace_scene_pallas and
 # trace_scene_pallas_ao_fg)
 # ---------------------------------------------------------------------------
 
-def _scene_args(scene):
-    """Instances in model order (the reference kernel's sweep order) with
-    their affines, plus the model AABBs."""
-    I = scene.num_instances
-    if I > 2:
-        raise NotImplementedError(
-            "scenes with more than 2 instances need the front-to-back "
-            "instance order (ROADMAP.md Queue 1, 'Many instances')")
-    dev = scene.device
-    order = sorted(range(I), key=lambda i: scene.inst_model[i])
+def _loop_route() -> bool:
+    """The reference's switch between its two scene-trace routes."""
+    return os.environ.get("DUST_PALLAS_SCENE") == "loop"
+
+
+def _model_order(scene):
+    """Instance indices sorted by model slot (stable)."""
+    return sorted(range(scene.num_instances),
+                  key=lambda i: scene.inst_model[i])
+
+
+def front_to_back_ids(scene, origin):
+    """The batched route's sweep order at more than 2 instances: model
+    groups in model order, and within each group the instances sorted by
+    the squared distance from the mean ray origin (miss lanes included,
+    as in the reference) to the instance's world-space box centre.
+    Returns (ids (I,) int32, world-to-object affines (I, 12)). Device
+    ops only: no value comes back to the host.
+
+    The kernel's merge keeps the first of two equal hits (strict ``<``),
+    so the order decides which instance wins an exact tie; keeping the
+    reference's order keeps ``inst`` exact."""
+    order = _model_order(scene)
+    dev = origin.device
     idx = torch.tensor(order, dtype=torch.long, device=dev)
-    ids = idx.int()
+    models = torch.tensor([scene.inst_model[i] for i in order],
+                          dtype=torch.long, device=dev)
+    center_m = 0.5 * (scene.model_aabb_min + scene.model_aabb_max)
+    c = center_m[models]                                        # (I, 3)
+    o2w = scene.obj_to_world[idx]
+    cw = (o2w[:, :, :3] * c[:, None, :]).sum(dim=-1) + o2w[:, :, 3]
+    mo = origin.float().mean(dim=0)
+    dist = ((cw - mo[None, :]) ** 2).sum(dim=-1)                # (I,)
+    parts = []
+    start = 0
+    for m in range(scene.num_models):
+        cnt = sum(1 for im in scene.inst_model if im == m)
+        if cnt == 0:
+            continue
+        seg = idx[start:start + cnt]
+        if cnt > 1:
+            seg = seg[torch.argsort(dist[start:start + cnt], stable=True)]
+        parts.append(seg)
+        start += cnt
+    ids = torch.cat(parts)
+    aff = scene.world_to_obj.reshape(-1, 12)[ids].contiguous()
+    return ids.int(), aff
+
+
+def _scene_args(scene, origin=None):
+    """The batched kernel's sweep: instance model slots, ids and affines,
+    plus the model AABBs. Model order, as the reference sweeps; at more
+    than 2 instances near to far within each model group
+    (:func:`front_to_back_ids`, which needs the rays' ``origin``)."""
+    I = scene.num_instances
+    dev = scene.device
+    order = _model_order(scene)
+    # The model of each sweep slot is fixed by the grouping alone.
     models = torch.tensor([scene.inst_model[i] for i in order],
                           dtype=torch.int32, device=dev)
-    aff = scene.world_to_obj[idx].reshape(I, 12).contiguous()
+    if I > 2:
+        ids, aff = front_to_back_ids(scene, origin)
+    else:
+        idx = torch.tensor(order, dtype=torch.long, device=dev)
+        ids = idx.int()
+        aff = scene.world_to_obj[idx].reshape(I, 12).contiguous()
     aabb = torch.cat([scene.model_aabb_min, scene.model_aabb_max],
                      dim=-1).contiguous()
     return models, ids, aff, aabb
 
 
-def _per_ray(x, n, dev):
-    return torch.broadcast_to(torch.as_tensor(x, dtype=torch.float32,
-                                              device=dev), (n,)).contiguous()
+def _instance_tables(scene, m) -> HDDATables:
+    return HDDATables(l1=scene.hdda_l1[m], l2=scene.hdda_l2[m],
+                      mask=scene.hdda_mask[m])
 
 
 def trace_scene(scene, origin, direction, t_min, t_max,
@@ -699,12 +917,44 @@ def trace_scene(scene, origin, direction, t_min, t_max,
     directions, world-parameter t bounds)."""
     n = origin.shape[0]
     dev = origin.device
-    models, ids, aff, aabb = _scene_args(scene)
+    if _loop_route():
+        return _trace_scene_loop(scene, origin, direction,
+                                 _per_ray(t_min, n, dev),
+                                 _per_ray(t_max, n, dev), mode)
+    models, ids, aff, aabb = _scene_args(scene, origin)
     t, inst, row, bit = hdda(
         scene.hdda_l1, scene.hdda_l2, scene.hdda_mask, models, ids, aff, aabb,
         origin.contiguous(), direction.contiguous(),
         _per_ray(t_min, n, dev), _per_ray(t_max, n, dev), mode=mode)
     return TraceResult(t=t, inst=inst, row=row, bit=bit)
+
+
+def _trace_scene_loop(scene, origin, direction, t_min, t_max, mode):
+    """The loop route of :func:`trace_scene`: instances in index order,
+    each through the single-instance kernel."""
+    n = origin.shape[0]
+    dev = origin.device
+    best_t = torch.full((n,), float("inf"), device=dev)
+    best_inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_row, best_bit = best_inst, best_inst
+    for i, m in enumerate(scene.inst_model):
+        w2o = scene.world_to_obj[i]
+        o_obj = xform_point(w2o, origin)
+        d_obj = xform_dir(w2o, direction)
+        cap0 = torch.minimum(t_max, best_t)
+        tn, cap = clip_to_model_aabb(scene, m, o_obj, d_obj, t_min, cap0)
+        if mode == "ao_threshold":
+            # The quirk plane is s_stop in the instance kernel: keep it at
+            # the committed tmax; the box clip still culls misses.
+            cap = torch.where(cap < tn, cap, cap0)
+        t, row, bit = trace_instance(_instance_tables(scene, m), o_obj, d_obj,
+                                     tn, cap, mode=mode)
+        closer = t < best_t
+        best_t = torch.where(closer, t, best_t)
+        best_inst = torch.where(closer, i, best_inst)
+        best_row = torch.where(closer, row, best_row)
+        best_bit = torch.where(closer, bit, best_bit)
+    return TraceResult(t=best_t, inst=best_inst, row=best_row, bit=best_bit)
 
 
 def trace_scene_ao_fg(scene, origin, direction, t_min, t_ao, t_max):
@@ -713,12 +963,45 @@ def trace_scene_ao_fg(scene, origin, direction, t_min, t_ao, t_max):
     it. Returns two TraceResults (ao, fg); ao carries only t and inst."""
     n = origin.shape[0]
     dev = origin.device
-    models, ids, aff, aabb = _scene_args(scene)
-    ao_t, ao_i, fg_t, fg_i, fg_row = hdda(
-        scene.hdda_l1, scene.hdda_l2, scene.hdda_mask, models, ids, aff, aabb,
-        origin.contiguous(), direction.contiguous(),
-        _per_ray(t_min, n, dev), _per_ray(t_max, n, dev),
-        t_ao=_per_ray(t_ao, n, dev), mode="ao_fg")
     neg1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    t_min, t_ao, t_max = (_per_ray(t, n, dev) for t in (t_min, t_ao, t_max))
+    if _loop_route():
+        ao_t, ao_i, fg_t, fg_i, fg_row = _trace_scene_ao_fg_loop(
+            scene, origin, direction, t_min, t_ao, t_max)
+    else:
+        models, ids, aff, aabb = _scene_args(scene, origin)
+        ao_t, ao_i, fg_t, fg_i, fg_row = hdda(
+            scene.hdda_l1, scene.hdda_l2, scene.hdda_mask, models, ids, aff,
+            aabb, origin.contiguous(), direction.contiguous(), t_min, t_max,
+            t_ao=t_ao, mode="ao_fg")
     return (TraceResult(t=ao_t, inst=ao_i, row=neg1, bit=neg1),
             TraceResult(t=fg_t, inst=fg_i, row=fg_row, bit=neg1))
+
+
+def _trace_scene_ao_fg_loop(scene, origin, direction, t_min, t_ao, t_max):
+    """The loop route of :func:`trace_scene_ao_fg`. Returns (ao_t, ao_inst,
+    fg_t, fg_inst, fg_row)."""
+    n = origin.shape[0]
+    dev = origin.device
+    ao_t = torch.full((n,), float("inf"), device=dev)
+    fg_t = ao_t
+    ao_inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    fg_inst, fg_row = ao_inst, ao_inst
+    for i, m in enumerate(scene.inst_model):
+        w2o = scene.world_to_obj[i]
+        o_obj = xform_point(w2o, origin)
+        d_obj = xform_dir(w2o, direction)
+        # fg hits lie past t_ao, so capping by the best fg so far never
+        # clips the AO range; t_ao passes through unclipped.
+        cap = torch.minimum(t_max, fg_t)
+        tn, cap = clip_to_model_aabb(scene, m, o_obj, d_obj, t_min, cap)
+        a_t, f_t, f_row = trace_instance_ao_fg(
+            _instance_tables(scene, m), o_obj, d_obj, tn, t_ao, cap)
+        a_closer = a_t < ao_t
+        ao_t = torch.where(a_closer, a_t, ao_t)
+        ao_inst = torch.where(a_closer, i, ao_inst)
+        f_closer = f_t < fg_t
+        fg_t = torch.where(f_closer, f_t, fg_t)
+        fg_inst = torch.where(f_closer, i, fg_inst)
+        fg_row = torch.where(f_closer, f_row, fg_row)
+    return ao_t, ao_inst, fg_t, fg_inst, fg_row

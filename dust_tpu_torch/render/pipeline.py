@@ -11,13 +11,17 @@ half-resolution indirect denoise. Per frame:
    traced to the AO threshold, then continued rough; final-gather hits
    read the dense GI cache.
 4. **surfel refresh** — every (instance, leaf, face) cell shoots a sun
-   ray and a cosine ray and folds the result into its cache row.
+   ray and a cosine ray and folds the result into its cache row; when
+   the cache has more rows than ``dense_refresh_budget``, a rotating
+   slice of that many rows per frame.
 5. **post** — half-res temporal + à-trous denoise of the indirect,
    joint-bilateral upsample, auto-exposure, ACES tonemap.
 
-Six kernel launches per frame: precise, ao_fg, ao_threshold and three
-rough. Settings the port does not cover yet raise ``NotImplementedError``
-naming their ROADMAP item.
+Six traces per frame: precise, ao_fg, ao_threshold and three rough; each
+is one launch of the scene kernel, or with ``DUST_PALLAS_SCENE=loop``
+one launch of the single-instance kernel per instance
+(:mod:`dust_tpu_torch.ops.hdda`). Settings the port does not cover yet
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -261,12 +265,20 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
     surfel_dir = torch.arange(6, dtype=torch.int32,
                               device=dev)[:, None].expand(6, C).reshape(-1)
     s_valid = vleaf.repeat(6)
-    p = surfel_pos.shape[0]
+    # Refresh budget: big scenes patch a rotating contiguous slice of
+    # ``budget`` rows per frame.
+    rows_total = surfel_pos.shape[0]
     budget = settings.surfels.dense_refresh_budget
-    if budget and p > budget:
-        raise NotImplementedError(
-            "dense_refresh_budget slicing is not ported yet (ROADMAP.md "
-            "Queue 1, 'Many instances')")
+    slice_start = None
+    if budget and rows_total > budget:
+        nslices = -(-rows_total // budget)
+        slice_start = min((frame_index % nslices) * budget,
+                          rows_total - budget)
+        window = slice(slice_start, slice_start + budget)
+        surfel_pos = surfel_pos[window]
+        surfel_dir = surfel_dir[window]
+        s_valid = s_valid[window]
+    p = surfel_pos.shape[0]
     s_normal = pk.face_id_to_normal(surfel_dir)
     s_origin = fma(torch.full_like(s_normal, 2.01), s_normal, surfel_pos)
     s_cos = noiselib.bn_fetch_pool(bn_cosine, layer, (16, 47), rand,
@@ -299,7 +311,11 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
     insert_val = torch.where(s_hit[:, None], s_bounce + s_payload,
                              s_sky + s_payload)
     insert_ok = s_valid & (~s_hit | s_found)
-    new_gi = gilib.dense_update(state.gi, insert_val, insert_ok)
+    if slice_start is None:
+        new_gi = gilib.dense_update(state.gi, insert_val, insert_ok)
+    else:
+        new_gi = gilib.dense_update_slice(state.gi, slice_start, insert_val,
+                                          insert_ok)
 
     # -------------------------------------------------- 5. post (half res)
     dep2 = from_tiles(g["depth"])
@@ -343,8 +359,14 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
 
 def frame_ray_count(scene, settings: RenderSettings) -> int:
     """Rays per frame as the reference's bench counts them: four
-    full-resolution launches plus two rays per valid dense-cache cell."""
+    full-resolution launches plus two rays per valid dense-cache cell,
+    or, under a refresh budget, per valid cell of the frame's slice
+    (``budget`` rows times the valid fraction of all rows)."""
     valid = (scene.mask_lo | scene.mask_hi) != 0
     counts = valid.sum(dim=1).tolist()
     patch_cells = sum(counts[m] for m in scene.inst_model) * 6
+    total_rows = gilib.dense_rows(scene)
+    budget = settings.surfels.dense_refresh_budget
+    if budget and total_rows > budget:
+        patch_cells = int(budget * patch_cells / total_rows)
     return settings.width * settings.height * 4 + patch_cells * 2

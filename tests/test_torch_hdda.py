@@ -20,7 +20,8 @@ from jax.experimental.pallas import tpu as pltpu
 from dust_tpu.ops import pallas_trace as pt
 from dust_tpu.render.scene import build_device_scene
 from dust_tpu_torch.ops import hdda
-from tests.torch_parity import camera_rays, port_scene, teapot_vox, tensor
+from tests.torch_parity import (port_scene, teapot_ray_sets, teapot_vox,
+                                 tensor)
 
 N_SECONDARY = 2048
 
@@ -34,26 +35,7 @@ def scenes():
 @pytest.fixture(scope="module")
 def rays(scenes):
     """Camera rays and seeded secondary rays from the camera hits."""
-    js, _ = scenes
-    o, d = camera_rays(128, 64)
-    prim = pt.trace_scene_pallas(js, jnp.asarray(o), jnp.asarray(d), 0.1,
-                                 10000.0, mode="precise", interpret=True)
-    hit = np.asarray(prim.hit)
-    assert hit.sum() > 1500, "the camera must see the teapot"
-    rng = np.random.default_rng(7)
-    idx = rng.choice(np.flatnonzero(hit), N_SECONDARY, replace=True)
-    so = o[idx] + d[idx] * (np.asarray(prim.t)[idx, None] * 0.999)
-    sd = rng.normal(size=(N_SECONDARY, 3))
-    sd /= np.linalg.norm(sd, axis=-1, keepdims=True)
-    n = len(o)
-    return {
-        # (origin, direction, t_min, t_ao, t_max)
-        "camera": (o, d, np.full(n, 0.1), np.full(n, 60.0),
-                   np.full(n, 10000.0)),
-        "secondary": (so.astype(np.float32), sd.astype(np.float32),
-                      np.full(N_SECONDARY, 0.1), np.full(N_SECONDARY, 8.0),
-                      np.full(N_SECONDARY, 10000.0)),
-    }
+    return teapot_ray_sets(scenes[0], N_SECONDARY)
 
 
 def _t_max(mode, rs):

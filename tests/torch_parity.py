@@ -72,3 +72,37 @@ def camera_rays(width: int, height: int, eye=TEAPOT_EYE,
     d = np.array(cam.camera_ray_dirs(cs, width, height)).reshape(-1, 3)
     o = np.broadcast_to(np.array(cs.position), d.shape).copy()
     return o.astype(np.float32), d.astype(np.float32)
+
+
+def secondary_rays(o, d, t, hit, n, seed):
+    """``n`` seeded rays leaving hit points (just short of the hit) in
+    uniform random directions."""
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(np.flatnonzero(hit), n, replace=True)
+    so = o[idx] + d[idx] * (t[idx, None] * 0.999)
+    sd = rng.normal(size=(n, 3))
+    sd /= np.linalg.norm(sd, axis=-1, keepdims=True)
+    return so.astype(np.float32), sd.astype(np.float32)
+
+
+def teapot_ray_sets(js, n_secondary: int = 2048):
+    """The teapot's 128×64 camera rays and seeded secondary rays from the
+    camera hits, each as (origin, direction, t_min, t_ao, t_max)."""
+    import jax.numpy as jnp
+
+    from dust_tpu.ops import pallas_trace as pt
+
+    o, d = camera_rays(128, 64)
+    prim = pt.trace_scene_pallas(js, jnp.asarray(o), jnp.asarray(d), 0.1,
+                                 10000.0, mode="precise", interpret=True)
+    hit = np.asarray(prim.hit)
+    assert hit.sum() > 1500, "the camera must see the teapot"
+    so, sd = secondary_rays(o, d, np.asarray(prim.t), hit, n_secondary, 7)
+    n = len(o)
+    return {
+        "camera": (o, d, np.full(n, 0.1), np.full(n, 60.0),
+                   np.full(n, 10000.0)),
+        "secondary": (so, sd, np.full(n_secondary, 0.1),
+                      np.full(n_secondary, 8.0),
+                      np.full(n_secondary, 10000.0)),
+    }
