@@ -8,8 +8,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 3. renders one 1920x1080 castle+teapot frame of the dense-GI configuration
    while recording every traversal launch, then holds the kernel against
    its plain PyTorch version on the card, per mode, on a 65,536-ray
-   subsample of that mode's real rays (hit, instance and leaf row must
-   agree on at least 99.7% of rays), and times both on the full ray set;
+   subsample of that mode's real rays (every output equal, torch.equal),
+   times both on the full ray set, and computes the launch's bound (the
+   bytes it must move at the card's memory rate);
 4. the slice: resets the launch counts, renders 4 frames through
    render_frame on the card, checks 6 kernel launches per frame and a
    finite, non-black image, and prints ms/frame and Mrays/s;
@@ -19,19 +20,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
    teapots, 11 instances, 1920x1080, the dense-cache refresh rotating
    through budget slices), batched scene-trace route: holds the scene
    kernel against its plain version on that frame's real rays (>2
-   instances: near-to-far sweep order, per-ray instance skip), then
-   renders 4 frames, checks 6 scene-kernel launches per frame and a
-   finite, non-black image, and prints ms/frame and Mrays/s;
+   instances: near-to-far sweep order, per-ray instance skip; torch.equal)
+   and times it per mode on the full launches, then renders 4 frames,
+   checks 6 scene-kernel launches per frame and a finite, non-black
+   image, and prints ms/frame and Mrays/s;
 7. the same frame through the loop route (DUST_PALLAS_SCENE=loop, set
    in-process and removed afterwards): checks the single-instance
    kernel's launches per frame (11 per trace: precise 11, ao_fg 11,
    ao_threshold 11, rough 33; no scene-kernel launch), holds that kernel
    against its plain version per mode on a 65,536-ray subsample of a
-   recorded launch (>= 99.7% agreement) and times both on the full
-   launch, prints ms/frame and Mrays/s, and checks the loop-route image
+   recorded launch (torch.equal) and times both on the full launch,
+   prints ms/frame and Mrays/s, and checks the loop-route image
    against the batched-route image of the same frame (RMSE < 0.01);
 8. renders a 128x72 stress frame on the card and on the CPU and checks
    that the two images agree (RMSE < 0.01).
+
+Before the result it prints each scene-kernel mode's time per launch at
+the stress frame's shapes with its share of the bound, the kernels line
+{"kernels": [...]} and the card's name and power limit.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails. The last line is the result:
@@ -48,7 +54,15 @@ DEVICE = "cuda:0"
 WIDTH, HEIGHT = 1920, 1080
 FRAMES = 4
 SUBSAMPLE = 65536
-MIN_AGREEMENT = 0.997
+# H100 SXM peaks (NVIDIA's data sheet), for the bounds: device memory
+# rate, and float32 outside the tensor cores.
+MEM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# Float operations of the scene kernel's set-up of one ray for one
+# instance (affine, normalisation, reciprocals, box clip, range scaling;
+# an FMA counts 2), which every ray does for every instance. The walk's
+# own operations depend on the data and are not counted.
+SETUP_FLOPS = 61
 # Camera eyes of bench.py's configs; both look at the origin.
 EYES = {"gi": (122.0, 300.61, 54.45), "stress": (260.0, 420.0, 180.0)}
 STRESS_INSTANCES = 11
@@ -66,9 +80,9 @@ def _card() -> str:
 def _setup(device, width, height, config="gi"):
     """Scene, camera and state of bench.py's ``config`` (gi: castle +
     animated teapot; stress: procgen.stress_scene, last teapot animated)."""
-    from dust_tpu.config import RenderSettings
-    from dust_tpu.vox import procgen
-    from dust_tpu.vox.loader import load_vox_scene
+    from dust_tpu_torch.config import RenderSettings
+    from dust_tpu_torch.vox import procgen
+    from dust_tpu_torch.vox.loader import load_vox_scene
     from dust_tpu_torch.ops import camera as cameralib
     from dust_tpu_torch.ops.noise import load_blue_noise
     from dust_tpu_torch.ops.sky import bake_sky
@@ -95,7 +109,7 @@ def _setup(device, width, height, config="gi"):
 
 def _render(ctx, f, state):
     """Frame ``f`` (animated teapot) from ``state``: (output, new state)."""
-    from dust_tpu.vox import procgen
+    from dust_tpu_torch.vox import procgen
     from dust_tpu_torch.render.pipeline import render_frame
 
     scene = ctx["scene"].with_transforms(
@@ -160,6 +174,8 @@ def _report_frame(label, ctx, out, times, card):
 
 
 def _ms(fn, reps):
+    """Mean ms per call of ``fn`` over ``reps`` calls issued from the host
+    after one warm-up call (CUDA events)."""
     import torch
 
     fn()
@@ -171,6 +187,26 @@ def _ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _kernel_ms(fn, min_ms=20.0):
+    """Mean ms per launch of ``fn`` replayed from a CUDA graph, so that the
+    launches run back to back on the card without the wrapper's host time
+    (some 50-80 us a call, more than a short launch) between them. The
+    replays run for about ``min_ms`` before the timed ones, as many, so
+    that the clocks have left idle."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    once = _ms(graph.replay, 1)
+    reps = max(10, int(min_ms / max(once, 1e-3)))
+    for _ in range(reps):
+        graph.replay()
+    return _ms(graph.replay, reps)
 
 
 def _subsample(args, n_keep, tables, seed=0):
@@ -212,27 +248,47 @@ def _compare(out_k, out_p):
     return float(ok.float().mean()), err
 
 
-def _hold(label, run, run_plain, full, tables, timed=True):
+def _bound(tensors, flops):
+    """The least time a launch could take on the card, (ms, "bytes" or
+    "operations"): the larger of every input read once and every output
+    written once at the memory rate, and ``flops`` at the float32 rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    by_bytes = 1e3 * nbytes / MEM_BYTES_PER_S
+    by_ops = 1e3 * flops / F32_FLOPS_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def _hold(label, run, run_plain, full, tables, flops, plain_timed=True):
     """Kernel against plain version on a subsample of the recorded launch
-    ``full`` (fails below MIN_AGREEMENT); with ``timed``, both timed on
-    the full launch. Returns (max |dt|, kernel ms, plain ms)."""
+    ``full``: every output must be equal (torch.equal). Then the kernel
+    is timed on the full launch, replayed from a CUDA graph (and, with
+    ``plain_timed``, the plain version from the host); its bound counts
+    ``flops`` float operations. Returns a dict: max |dt|, kernel ms,
+    plain ms (or None), bound ms and what bounds it."""
     import torch
 
     sub = _subsample(full, SUBSAMPLE, tables)
     out_k = run(sub)
-    agree, err = _compare(out_k, run_plain(sub))
+    out_p = run_plain(sub)
+    agree, err = _compare(out_k, out_p)
+    equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
     print(f"{label:28s} kernel vs plain on {out_k[0].shape[0]} rays: "
           f"agreement {agree:.6f} ({int(torch.isfinite(out_k[0]).sum())} "
-          f"finite t), max |dt| {err:.3g}")
-    if agree < MIN_AGREEMENT:
-        raise SystemExit(f"{label}: kernel and plain agree on {agree:.4%}")
-    if not timed:
-        return err, None, None
-    ms = _ms(lambda: run(full), 10)
-    plain_ms = _ms(lambda: run_plain(full), 1)
+          f"finite t), max |dt| {err:.3g}, equal {equal}")
+    if not equal:
+        raise SystemExit(f"{label}: kernel and plain differ "
+                         f"(agreement {agree:.4%}, max |dt| {err:.3g})")
+    bound, bound_by = _bound(full + run(full), flops)
+    ms = _kernel_ms(lambda: run(full))
+    plain_ms = _ms(lambda: run_plain(full), 1) if plain_timed else None
     print(f"{label:28s} full launch ({full[tables].shape[0]} rays): kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.1f} ms")
-    return err, ms, plain_ms
+          f"{ms:.3f} ms"
+          + ("" if plain_ms is None else f", plain {plain_ms:.1f} ms")
+          + f", bound {bound:.4f} ms ({bound_by})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by)
 
 
 def _recorded_frame(ctx, f, module, name, on_call):
@@ -252,9 +308,10 @@ def _recorded_frame(ctx, f, module, name, on_call):
     return out
 
 
-def _hold_scene_kernel(hdda, ctx, f, label, timed):
-    """Phase 3's check of the scene kernel on frame ``f``'s real rays: the
-    first launch of each mode. Returns {mode: (max |dt|, ms, plain ms)}."""
+def _hold_scene_kernel(hdda, ctx, f, label, plain_timed):
+    """The scene kernel against its plain version on frame ``f``'s real
+    rays, and its time: the first launch of each mode. Returns {mode:
+    _hold's dict}."""
     import torch
 
     first = {}
@@ -271,7 +328,9 @@ def _hold_scene_kernel(hdda, ctx, f, label, timed):
         def run_plain(a, m=mode):
             return hdda.hdda_plain(*a[:12], mode=m)
 
-        held[mode] = _hold(f"{label} {mode}", run, run_plain, full, 7, timed)
+        flops = SETUP_FLOPS * full[7].shape[0] * full[3].shape[0]
+        held[mode] = _hold(f"{label} {mode}", run, run_plain, full, 7, flops,
+                           plain_timed)
     return held
 
 
@@ -313,12 +372,14 @@ def main() -> int:
 
     # ---- 3. kernel against plain, per mode, on one frame's real rays ---
     ctx = _setup(dev, WIDTH, HEIGHT)
-    held = _hold_scene_kernel(hdda, ctx, 0, "gi hdda_scene", timed=True)
+    held = _hold_scene_kernel(hdda, ctx, 0, "gi hdda_scene", True)
     kernels = [dict(name=f"hdda_scene<{m}>", route="cuda",
                     source="dust_tpu_torch/csrc/hdda.cu",
                     replaces=REPLACES + "1305", launches=0,
-                    max_abs_err=held[m][0], ms=held[m][1],
-                    plain_ms=held[m][2]) for m in hdda.MODES]
+                    max_abs_err=held[m]["err"], ms=held[m]["ms"],
+                    plain_ms=held[m]["plain_ms"],
+                    bound_ms=held[m]["bound_ms"], bound_by=held[m]["bound_by"],
+                    library_ms=None) for m in hdda.MODES]
 
     # ---- 4. the slice: 4 frames through render_frame on the card -------
     reset_counts()
@@ -341,7 +402,8 @@ def main() -> int:
     if stress["scene"].num_instances != STRESS_INSTANCES:
         raise SystemExit(f"stress scene: {stress['scene'].num_instances} "
                          f"instances, expected {STRESS_INSTANCES}")
-    _hold_scene_kernel(hdda, stress, 0, "stress hdda_scene", timed=False)
+    stress_held = _hold_scene_kernel(hdda, stress, 0, "stress hdda_scene",
+                                     False)
     reset_counts()
     out, times = _timed_frames(stress, FRAMES, first=1)
     _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, FRAMES, "hdda_scene")
@@ -382,14 +444,15 @@ def main() -> int:
             def run_plain(a, m=mode):
                 return hdda.hdda_instance_plain(*a[:8], m)
 
-            err, ms, plain_ms = _hold(f"stress hdda_instance {mode}", run,
-                                      run_plain, full, 3)
+            h = _hold(f"stress hdda_instance {mode}", run, run_plain, full, 3,
+                      0)
             kernels.append(dict(
                 name=f"hdda_instance<{mode}>", route="cuda",
                 source="dust_tpu_torch/csrc/hdda.cu",
                 replaces=REPLACES + ("1397" if mode == "ao_fg" else "1335"),
-                launches=launches[mode], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms))
+                launches=launches[mode], max_abs_err=h["err"], ms=h["ms"],
+                plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
+                bound_by=h["bound_by"], library_ms=None))
         del busiest
         # One frame from one state through both routes.
         f = first + 1 + FRAMES
@@ -411,6 +474,12 @@ def main() -> int:
     if not err < 0.01:
         raise SystemExit(f"card and CPU stress frames differ: RMSE {err:.5f}")
 
+    for mode in hdda.MODES:
+        h = stress_held[mode]
+        print(f"stress hdda_scene<{mode}>: {h['ms']:.3f} ms per launch at "
+              f"{WIDTH}x{HEIGHT}, {STRESS_INSTANCES} instances; bound "
+              f"{h['bound_ms']:.4f} ms ({h['bound_by']}); "
+              f"{100.0 * h['bound_ms'] / h['ms']:.2f}% of the bound [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

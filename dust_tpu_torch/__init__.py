@@ -3,13 +3,15 @@
 The JAX package :mod:`dust_tpu` is the reference; this package keeps its
 module names (``ops/camera.py``, ``ops/shade.py``, ``render/pipeline.py``
 ...) so every function has an obvious counterpart. It imports ``torch``
-and never ``jax``. Host-side code that never touched jax (the ``.vox``
-importer, the voxel tree, the config dataclasses, the assets) is reused
-from :mod:`dust_tpu` as it is.
+and never ``jax``, and nothing of :mod:`dust_tpu`: the host-side code it
+needs (the config dataclasses in ``config.py``, the ``.vox`` importer in
+``vox/``, the voxel tree in ``voxtree/``, the PNG writer in
+``utils/image.py``, the colour constants, the assets) is a copy under the
+same module names.
 
-The one TPU kernel on the headline frame, the batched HDDA scene
-traversal, is the hand-written CUDA kernel in ``csrc/hdda.cu`` (see
+The TPU kernels (the HDDA traversal's scene and single-instance kernels)
+are hand-written CUDA kernels in ``csrc/hdda.cu`` (see
 :mod:`dust_tpu_torch.ops.hdda`), built with ``nvcc`` at first use.
 """
 
-__all__ = ["app", "ops", "render", "utils", "vox"]
+__all__ = ["app", "config", "ops", "render", "utils", "vox", "voxtree"]

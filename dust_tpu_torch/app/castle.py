@@ -39,10 +39,10 @@ def main(argv=None) -> int:
               "PyTorch versions on the CPU)", file=sys.stderr)
         return 2
 
-    from dust_tpu.config import RenderSettings
-    from dust_tpu.utils.image import write_png
-    from dust_tpu.vox import procgen
-    from dust_tpu.vox.loader import load_vox_scene
+    from dust_tpu_torch.config import RenderSettings
+    from dust_tpu_torch.utils.image import write_png
+    from dust_tpu_torch.vox import procgen
+    from dust_tpu_torch.vox.loader import load_vox_scene
     from dust_tpu_torch.ops import camera as cameralib
     from dust_tpu_torch.ops.noise import load_blue_noise
     from dust_tpu_torch.ops.sky import bake_sky

@@ -33,16 +33,29 @@
 // explicit __fmaf_rn calls, placed where the reference's XLA build
 // contracts them and mirrored in the plain version.
 //
-// What bounds it on this card: dependent table loads and divergence, not
-// bytes or FLOPs. Each step needs a table word before it can choose the
-// next one, and neighbouring rays run loops of different lengths. The
-// tables (~70 KB per model plus 8 KB per 1024-leaf mask chunk, ~0.3 MB
-// for the castle) stay in the 50 MB L2; loads go through the read-only
-// path (__ldg). One thread per ray, in the caller's ray order: the frame
-// orders rays in 8x128-pixel tiles, so a warp walks neighbouring pixels.
+// What bounds it on this card: latency, not bytes or FLOPs. A launch must
+// move about 48 bytes per ray (56 in AO_FG) plus the 0.6 MB of tables,
+// 0.030 ms at 3.35 TB/s, and does a few dozen float operations per step;
+// each step needs a table word before it can choose the next one. Measured
+// per ray on the 1080p frames (PERF.md, section 5): 69-97% of rays enter no
+// instance, walks are 6-13 steps at the median and at most 30-303, warps
+// keep 22-48% of their lanes busy, and the stress frame's sun-shadow
+// (AO_FG) launch is one ray: it lies in a block face plane parallel to the
+// sun, advances by the 1e-4 nudge per step, and walks two instances to
+// the round cap (40,960 steps, 6.2 of the launch's 6.4 ms).
 //
-// This first version is simple and right. Making it fast (coherent tile
-// scheduling, tables in shared memory, persistent blocks) is later work.
+// The design, one thread per ray in the caller's ray order (the frame's
+// 8x128-pixel tiles, so a warp walks neighbouring pixels), is chosen for
+// that latency: every value a step reads is in a register. The micro DDA
+// picks its axis by branches rather than by a run-time array index, so the
+// ray and the walk state never go to local memory, where every step would
+// load them again (no stack frame; keeping them in registers took 0-53%
+// off the launch times). Tables stay in the 50 MB L2 and are
+// read through the read-only path (__ldg); they need no shared memory and
+// no size limit. Persistent warps that refill finished lanes from a ray
+// queue were measured slower in most modes (their turn overhead and 95
+// registers cost more than the idle lanes), and so was computing the
+// block exit before the L1 word arrives (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -217,9 +230,18 @@ __device__ __forceinline__ bool micro_walk(const Ray& ray, int2 mk, float s,
     if (occ) break;
     float s_next = fminf(fminf(tm[0], tm[1]), tm[2]);
     if (s_next + kEps >= blk_out) break;
-    int ax = (tm[0] <= tm[1] && tm[0] <= tm[2]) ? 0 : (tm[1] <= tm[2] ? 1 : 2);
-    m[ax] += ray.sgn[ax];
-    tm[ax] = tm[ax] + fabsf(ray.r[ax]);
+    // The axis by explicit branches, so that no array is indexed at run
+    // time and the ray and the walk stay in registers.
+    if (tm[0] <= tm[1] && tm[0] <= tm[2]) {
+      m[0] += ray.sgn[0];
+      tm[0] = tm[0] + fabsf(ray.r[0]);
+    } else if (tm[1] <= tm[2]) {
+      m[1] += ray.sgn[1];
+      tm[1] = tm[1] + fabsf(ray.r[1]);
+    } else {
+      m[2] += ray.sgn[2];
+      tm[2] = tm[2] + fabsf(ray.r[2]);
+    }
     s_m = s_next;
   }
   int b = ((m[0] & 3) << 4) | ((m[1] & 3) << 2) | (m[2] & 3);

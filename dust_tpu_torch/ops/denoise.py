@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from dust_tpu.config import DenoiserSettings
+from dust_tpu_torch.config import DenoiserSettings
 from dust_tpu_torch.ops import packing as pk
 from dust_tpu_torch.ops.fp import as_i32, as_u32, bits_f16, f16_bits
 

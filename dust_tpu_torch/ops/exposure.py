@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from dust_tpu.config import ExposureSettings
+from dust_tpu_torch.config import ExposureSettings
 from dust_tpu_torch.utils import color as colorlib
 
 __all__ = ["mean_bin", "adapt_average_luminance", "exposure_value"]

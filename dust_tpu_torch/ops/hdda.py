@@ -127,7 +127,7 @@ def build_hdda_tables(flat) -> HDDATables:
     """Tables of one model from a FlatTree whose rows are in hierarchy
     order (which :meth:`VoxTree.flatten` guarantees; the ranks depend on
     it)."""
-    from dust_tpu.voxtree.tree import hierarchy_key
+    from dust_tpu_torch.voxtree.tree import hierarchy_key
 
     b = flat.leaf_origin >> 2
     key = hierarchy_key(b)

@@ -1,9 +1,9 @@
 """Spatio-temporal blue noise tables and the frame's noise fetch.
 
 Port of :mod:`dust_tpu.ops.noise` (the tables are built by the same
-numpy code from the same assets) plus the frame's roll-and-tile fetches
-(``bn_fetch`` / ``bn_fetch_pool`` in :func:`dust_tpu.render.pipeline.
-render_frame`). The frame takes all of its noise from these tables; the
+numpy code from the port's copies of the same assets) plus the frame's
+roll-and-tile fetches (``bn_fetch`` / ``bn_fetch_pool`` in
+:func:`dust_tpu.render.pipeline.render_frame`). The frame takes all of its noise from these tables; the
 port has no random generator.
 """
 
@@ -14,15 +14,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-import dust_tpu
-
 __all__ = ["BlueNoise", "load_blue_noise", "bn_fetch", "bn_fetch_pool"]
 
 SIZE = 128
 LAYERS = 64
 _PHI1 = 0.6180339887498949
 _PHI2 = (0.7548776662466927, 0.5698402909980532)
-_ASSETS = Path(dust_tpu.__file__).resolve().parent / "assets"
+_ASSETS = Path(__file__).resolve().parents[1] / "assets"
 
 
 class BlueNoise:

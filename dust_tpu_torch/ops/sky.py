@@ -1,11 +1,11 @@
 """Hošek-Wilkie analytic sky + solar radiance.
 
 Port of :mod:`dust_tpu.ops.sky`: the host-side bake is the same numpy
-code over the same dataset (``dust_tpu/assets/hosek_sky.npz``); the
-per-direction evaluation runs on tensors. As in the reference, the model
-past the ``arccos`` is evaluated in bfloat16 (every op rounds to bf16),
-so the port and the reference agree to bf16 precision there, not to the
-last float32 bit.
+code over the port's copy of the same dataset
+(``dust_tpu_torch/assets/hosek_sky.npz``); the per-direction evaluation
+runs on tensors. As in the reference, the model past the ``arccos`` is
+evaluated in bfloat16 (every op rounds to bf16), so the port and the
+reference agree to bf16 precision there, not to the last float32 bit.
 """
 
 from __future__ import annotations
@@ -16,13 +16,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-import dust_tpu
-from dust_tpu.config import SunlightSettings
+from dust_tpu_torch.config import SunlightSettings
 from dust_tpu_torch.utils import color as colorlib
 
 __all__ = ["SkyModelState", "bake_sky", "sky_radiance", "sun_radiance"]
 
-_DATASET = Path(dust_tpu.__file__).resolve().parent / "assets" / "hosek_sky.npz"
+_DATASET = Path(__file__).resolve().parents[1] / "assets" / "hosek_sky.npz"
 
 
 class SkyModelState(NamedTuple):

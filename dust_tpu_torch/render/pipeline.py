@@ -31,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from dust_tpu.config import RenderSettings
+from dust_tpu_torch.config import RenderSettings
 from dust_tpu_torch.ops import camera as cameralib
 from dust_tpu_torch.ops import denoise as denoiselib
 from dust_tpu_torch.ops import exposure as exposurelib

@@ -19,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from dust_tpu.vox.loader import VoxScene
+from dust_tpu_torch.vox.loader import VoxScene
 from dust_tpu_torch.ops.hdda import build_hdda_tables, stack_tables
 
 __all__ = ["DeviceScene", "build_device_scene", "scene_from_numpy",

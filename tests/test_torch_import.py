@@ -61,7 +61,7 @@ def test_cli_renders_on_cpu_when_asked(tmp_path):
               "--height", "72", "--frames", "2", "--teapot", "--device",
               "cpu", "--out", str(out)])
     assert r.returncode == 0, r.stderr
-    from dust_tpu.utils.image import read_png
+    from dust_tpu_torch.utils.image import read_png
     img = read_png(str(out))
     assert img.shape[:2] == (72, 128)
     assert 0.02 < float(np.asarray(img, np.float64).mean()) < 0.98 * 255
@@ -130,8 +130,8 @@ def test_kernel_matches_plain_on_the_card():
         pytest.skip("needs a CUDA device")
     # No import from the tests directory: on a machine where another
     # package installs a top-level ``tests``, that package shadows it.
-    from dust_tpu.vox import procgen
-    from dust_tpu.vox.loader import load_vox_scene
+    from dust_tpu_torch.vox import procgen
+    from dust_tpu_torch.vox.loader import load_vox_scene
     from dust_tpu_torch.ops import camera as cam
     from dust_tpu_torch.ops import hdda
     from dust_tpu_torch.render.scene import build_device_scene
@@ -169,8 +169,8 @@ def test_instance_kernel_matches_plain_on_the_card():
     every mode, hit-exact."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from dust_tpu.vox import procgen
-    from dust_tpu.vox.loader import load_vox_scene
+    from dust_tpu_torch.vox import procgen
+    from dust_tpu_torch.vox.loader import load_vox_scene
     from dust_tpu_torch.ops import camera as cam
     from dust_tpu_torch.ops import hdda
     from dust_tpu_torch.ops.traverse import dir_length, xform_dir, xform_point
@@ -203,3 +203,64 @@ def test_instance_kernel_matches_plain_on_the_card():
             torch.cuda.synchronize()
             for a, b in zip(k, p):
                 assert torch.equal(a, b), mode
+
+
+@pytest.mark.gpu
+def test_scene_kernel_long_and_short_walks_on_the_card():
+    """On a CUDA device: the scene kernel against its plain version, every
+    mode, hit-exact, on rays where a few walks are long and most end at
+    once, so that the lanes of a warp diverge as in the stress frame's
+    sun-shadow launch: most rays are inactive or leave the scene at once;
+    one in ten crosses the five-teapot scene at random; a few run parallel
+    to an axis on a block boundary plane of the first teapot (the walks
+    that creep by the step nudge until the iteration caps end them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dust_tpu_torch.ops import hdda
+    from dust_tpu_torch.render.scene import build_device_scene
+    from dust_tpu_torch.vox import procgen
+    from dust_tpu_torch.vox.loader import VoxInstance, load_vox_scene
+
+    vox = load_vox_scene(procgen.teapot_scene_bytes())
+    base = vox.instances[0]
+    for k in range(1, 5):
+        t = base.transform.copy()
+        t[:3, 3] += np.asarray([120.0 * k, 10.0 * k, 15.0 * k], np.float32)
+        vox.instances.append(VoxInstance(base.model_id, t, name=f"tp{k}"))
+    dev = torch.device("cuda")
+    scene = build_device_scene(vox, dev)
+
+    n = 32768
+    rng = np.random.default_rng(7)
+    o = np.zeros((n, 3), np.float32)
+    d = np.zeros((n, 3), np.float32)
+    t_max = np.full(n, -1.0, np.float32)            # inactive
+    away = np.arange(n) % 2 == 1                     # leave the scene upward
+    o[away] = rng.uniform(-50, 600, (int(away.sum()), 3)) + [0, 500, 0]
+    d[away] = [0.0, 1.0, 0.0]
+    t_max[away] = 1000.0
+    cross = rng.permutation(n)[: n // 10]            # random walks
+    centers = np.stack([v.transform[:3, 3] for v in vox.instances]) + 32.0
+    aim = centers[rng.integers(0, 5, len(cross))] + rng.normal(0, 20, (len(cross), 3))
+    o[cross] = aim + rng.normal(0, 1, (len(cross), 3)) * 150.0
+    d[cross] = aim - o[cross]
+    t_max[cross] = 1000.0
+    creep = rng.permutation(np.setdiff1d(np.arange(n), cross))[:6]
+    x0 = np.float32(base.transform[0, 3]) + np.float32(16.0 + 4.0 * 2)
+    o[creep] = np.stack([np.full(6, x0), base.transform[1, 3] + np.linspace(-5, 5, 6),
+                         base.transform[2, 3] + 60.0 + np.linspace(0, 8, 6)], 1)
+    d[creep] = [0.0, 0.8, -0.6]
+    t_max[creep] = 1000.0
+    tensor = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
+    ot, dt, tx = tensor(o), tensor(d), tensor(t_max)
+    tn = torch.full((n,), 0.1, device=dev)
+    ta = torch.full((n,), 8.0, device=dev)
+    tab = (scene.hdda_l1, scene.hdda_l2, scene.hdda_mask) + hdda._scene_args(scene, ot)
+    for mode in hdda.MODES:
+        t_ao = ta if mode == "ao_fg" else None
+        k = hdda.hdda(*tab, ot, dt, tn, tx, t_ao=t_ao, mode=mode)
+        p = hdda.hdda_plain(*tab, ot, dt, tn, tx, t_ao, mode)
+        torch.cuda.synchronize()
+        assert int(torch.isfinite(k[0]).sum()) > 100, mode
+        for a, b in zip(k, p):
+            assert torch.equal(a, b), mode
