@@ -13,7 +13,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    bytes it must move at the card's memory rate);
 4. the slice: resets the launch counts, renders 4 frames through
    render_frame on the card, checks 6 kernel launches per frame and a
-   finite, non-black image, and prints ms/frame and Mrays/s;
+   finite, non-black image, prints ms/frame and Mrays/s, and counts one
+   more frame's CUDA kernels and host syncs with torch.profiler;
 5. renders a 256x144 frame on the card and on the CPU (plain versions)
    and checks that the two images agree (RMSE < 0.01);
 6. the many-instance frame (bench.py --config stress: 3x3 castles + 2
@@ -33,7 +34,23 @@ Run from the root of a checkout:  python3 chip_smoke.py
    prints ms/frame and Mrays/s, and checks the loop-route image
    against the batched-route image of the same frame (RMSE < 0.01);
 8. renders a 128x72 stress frame on the card and on the CPU and checks
-   that the two images agree (RMSE < 0.01).
+   that the two images agree (RMSE < 0.01);
+9. the spatial-hash frame (bench.py --config hash-reference: castle +
+   animated teapot, 1920x1080, gi_cache="hash" with 2^25 slots, a
+   720x480 surfel pool, insert_cap 2^17): resets the launch counts,
+   renders 4 frames through render_frame on the card, checks 6
+   scene-kernel launches per frame, a finite, non-black image and a
+   table whose occupied slots grow from frame 1 to frame 4, prints
+   ms/frame and Mrays/s, and counts one frame's CUDA kernels and host
+   syncs with torch.profiler; then holds the scene kernel against its
+   plain version on the surfel pass's rough launches of a later frame
+   (the pool's rays; torch.equal on a 65,536-ray subsample), times
+   them, and times one call each of the hash's working-set probe and
+   insert;
+10. renders a 256x144 hash frame (2^16 slots, a 4096-surfel pool) on the
+   card and on the CPU for 2 frames: image RMSE < 0.01, and the two
+   tables agree on fingerprint, last frame and sample count in >= 99%
+   of the occupied slots.
 
 Before the result it prints each scene-kernel mode's time per launch at
 the stress frame's shapes with its share of the bound, the kernels line
@@ -63,8 +80,12 @@ F32_FLOPS_PER_S = 67e12
 # an FMA counts 2), which every ray does for every instance. The walk's
 # own operations depend on the data and are not counted.
 SETUP_FLOPS = 61
-# Camera eyes of bench.py's configs; both look at the origin.
-EYES = {"gi": (122.0, 300.61, 54.45), "stress": (260.0, 420.0, 180.0)}
+# Camera eyes of bench.py's configs; all look at the origin.
+EYES = {"gi": (122.0, 300.61, 54.45), "stress": (260.0, 420.0, 180.0),
+        "hash-reference": (122.0, 300.61, 54.45)}
+# bench.py --config hash-reference: the reference's cache scale.
+HASH_CAPACITY = 1 << 25
+HASH_POOL = 720 * 480
 STRESS_INSTANCES = 11
 # Scene-kernel launches per frame, per mode.
 SCENE_LAUNCHES = {"precise": 1, "ao_fg": 1, "ao_threshold": 1, "rough": 3}
@@ -77,10 +98,14 @@ def _card() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def _setup(device, width, height, config="gi"):
+def _setup(device, width, height, config="gi", capacity=HASH_CAPACITY,
+           pool=HASH_POOL):
     """Scene, camera and state of bench.py's ``config`` (gi: castle +
-    animated teapot; stress: procgen.stress_scene, last teapot animated)."""
-    from dust_tpu_torch.config import RenderSettings
+    animated teapot; stress: procgen.stress_scene, last teapot animated;
+    hash-reference: the gi scene with the spatial hash of ``capacity``
+    slots and a ``pool``-surfel pool)."""
+    from dust_tpu_torch.config import (RenderSettings, SpatialHashSettings,
+                                       SurfelSettings)
     from dust_tpu_torch.vox import procgen
     from dust_tpu_torch.vox.loader import load_vox_scene
     from dust_tpu_torch.ops import camera as cameralib
@@ -89,8 +114,15 @@ def _setup(device, width, height, config="gi"):
     from dust_tpu_torch.render.pipeline import make_frame_state
     from dust_tpu_torch.render.scene import build_device_scene
 
-    settings = RenderSettings(width=width, height=height, gi_cache="dense",
-                              traversal_backend="pallas")
+    if config == "hash-reference":
+        settings = RenderSettings(
+            width=width, height=height, gi_cache="hash",
+            traversal_backend="pallas",
+            spatial_hash=SpatialHashSettings(capacity=capacity),
+            surfels=SurfelSettings(pool_size=pool))
+    else:
+        settings = RenderSettings(width=width, height=height,
+                                  gi_cache="dense", traversal_backend="pallas")
     if config == "stress":
         vox, anim = procgen.stress_scene()
     else:
@@ -116,7 +148,7 @@ def _render(ctx, f, state):
         procgen.teapot_motion(ctx["base_o2w"], ctx["anim"], f))
     out, _aux, state = render_frame(
         scene, state, ctx["cam"], ctx["sky"], ctx["bn"].unitvec3_cosine,
-        ctx["settings"], return_aux=False)
+        ctx["bn"].scalar, ctx["settings"], return_aux=False)
     return out, state
 
 
@@ -334,6 +366,150 @@ def _hold_scene_kernel(hdda, ctx, f, label, plain_timed):
     return held
 
 
+def _occupied(state) -> int:
+    """Hash slots holding a key (non-zero fingerprint)."""
+    return int((state.gi.table.view(-1, 4)[:, 0] != 0).sum())
+
+
+def _profile_frame(ctx, f):
+    """One frame under torch.profiler: (CUDA kernels, memory copies and
+    sets, host syncs, device ms, wall ms, [(device ms, launches, name)]
+    of the kernels that took the most device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _frames(ctx, 1, first=f)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = copies = syncs = 0
+    device_us = 0.0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
+            device_us += e.device_time_total
+            us, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.device_time_total, count + 1)
+        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaEventSynchronize"):
+            syncs += 1
+    top = sorted(((us / 1e3, count, name) for name, (us, count)
+                  in by_name.items()), reverse=True)[:10]
+    # The frame's own closing torch.cuda.synchronize() is not the frame's.
+    return kernels, copies, syncs - 1, device_us / 1e3, 1e3 * wall, top
+
+
+def _print_profile(label, ctx, f, card):
+    """Profiles frame ``f`` (_profile_frame) and prints what it found."""
+    kernels, copies, syncs, dev_ms, wall_ms, top = _profile_frame(ctx, f)
+    print(f"{label} frame {f} under torch.profiler: {kernels} CUDA kernels, "
+          f"{copies} copies/sets, {syncs} host syncs, {dev_ms:.2f} ms device "
+          f"time in {wall_ms:.2f} ms ({100.0 * dev_ms / wall_ms:.1f}% busy) "
+          f"[{card}]")
+    for ms_k, count, name in top:
+        print(f"  {ms_k:8.3f} ms in {count:5d} launches: {name[:90]}")
+
+
+def _hash_tables_agree(a, b):
+    """Share of the slots occupied in either table whose fingerprint,
+    last frame and sample count are equal."""
+    a = a.gi.table.cpu().view(-1, 4)
+    b = b.gi.table.cpu().view(-1, 4)
+    occ = (a[:, 0] != 0) | (b[:, 0] != 0)
+    same = ((a[:, 0] == b[:, 0]) & (a[:, 2] == b[:, 2])
+            & (a[:, 3] == b[:, 3]))
+    return float(same[occ].float().mean()), int(occ.sum())
+
+
+def _hash_phase(hdda, dev, card, reset_counts, rmse):
+    """Phases 9 and 10: the hash-reference frame on the card, its pool
+    launches held and timed, and the small hash frame on card and CPU.
+    Returns (launches per mode over the 4 frames, {"sun"|"cosine": the
+    pool launch's _hold dict with its active rays})."""
+    import torch
+
+    # ---- 9. the spatial-hash frame (hash-reference) ------------------
+    hashed = _setup(dev, WIDTH, HEIGHT, "hash-reference")
+    reset_counts()
+    _out, times = _timed_frames(hashed, 1, first=0)
+    occ1 = _occupied(hashed["state"])
+    out, more = _timed_frames(hashed, FRAMES - 1, first=1)
+    occ4 = _occupied(hashed["state"])
+    _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, FRAMES, "hdda_scene")
+    hash_launches = dict(hdda.LAUNCHES)
+    _report_frame("castle+teapot hash-reference", hashed, out, times + more,
+                  card)
+    print(f"hash-reference table: {occ1} occupied slots after frame 1, "
+          f"{occ4} after frame {FRAMES} of {hashed['state'].gi.capacity}")
+    if not 0 < occ1 < occ4:
+        raise SystemExit(f"hash table does not fill: {occ1} then {occ4}")
+    _print_profile("hash-reference", hashed, FRAMES, card)
+    # The surfel pass's rough launches (sun, then cosine) of a frame with
+    # a filled pool: the pool's rays.
+    pool_launches = []
+    _recorded_frame(hashed, FRAMES + 1, hdda, "hdda", lambda a, kw: (
+        kw["mode"] == "rough" and a[7].shape[0] == HASH_POOL
+        and pool_launches.append(a + (None,))))
+    torch.cuda.synchronize()
+    if len(pool_launches) != 2:
+        raise SystemExit(f"hash frame: {len(pool_launches)} pool-sized rough "
+                         "launches, expected 2")
+    pool_held = {}
+    for what, full in zip(("sun", "cosine"), pool_launches):
+        live = int((full[10] >= full[9]).sum())
+        flops = SETUP_FLOPS * full[7].shape[0] * full[3].shape[0]
+        pool_held[what] = _hold(
+            f"hash pool {what} rough", lambda a: hdda.hdda(*a[:11],
+                                                           mode="rough"),
+            lambda a: hdda.hdda_plain(*a[:12], mode="rough"), full, 7, flops)
+        pool_held[what]["active_rays"] = live
+        h = pool_held[what]
+        print(f"hash pool {what} rough: {live} of {HASH_POOL} rays active; "
+              f"{h['ms']:.4f} ms per launch, bound {h['bound_ms']:.4f} ms "
+              f"({h['bound_by']}), {100.0 * h['bound_ms'] / h['ms']:.2f}% of "
+              f"the bound [{card}]")
+    # The hash layer's own time: one call each of the working-set probe
+    # and the insert, recorded from a frame and issued again from the host.
+    from dust_tpu_torch.ops import spatial_hash
+    from dust_tpu_torch.render import pipeline
+    layer_ms = {}
+    for f, (module, name) in enumerate(((pipeline, "_working_set"),
+                                        (spatial_hash, "hash_insert"))):
+        call = []
+        _recorded_frame(hashed, FRAMES + 2 + f, module, name,
+                        lambda a, kw: call.append((a, kw)))
+        fn = getattr(module, name)
+        layer_ms[name] = _ms(lambda: fn(*call[0][0], **call[0][1]), 5)
+    print(f"hash layer at {WIDTH}x{HEIGHT}: working set "
+          f"{layer_ms['_working_set']:.2f} ms, insert "
+          f"{layer_ms['hash_insert']:.2f} ms per call (CUDA events around 5 "
+          f"host-issued calls) [{card}]")
+    del hashed, out, pool_launches
+
+    # ---- 10. the hash frame small, on the card and on the CPU ---------
+    small = [_setup(d, 256, 144, "hash-reference", capacity=1 << 16,
+                    pool=4096) for d in (dev, torch.device("cpu"))]
+    imgs = [_frames(c, 2) for c in small]
+    err = rmse(imgs[0], imgs[1])
+    share, occ = _hash_tables_agree(small[0]["state"], small[1]["state"])
+    print(f"256x144 hash, 2 frames: card vs CPU plain RMSE {err:.5f}; "
+          f"tables agree on {share:.4%} of {occ} occupied slots")
+    if not err < 0.01:
+        raise SystemExit(f"card and CPU hash frames differ: RMSE {err:.5f}")
+    if not (occ > 0 and share >= 0.99):
+        raise SystemExit(f"card and CPU hash tables differ: {share:.4%} of "
+                         f"{occ} occupied slots agree")
+
+    return hash_launches, pool_held
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -388,6 +564,7 @@ def main() -> int:
     for k in kernels:
         k["launches"] = hdda.LAUNCHES[k["name"][len("hdda_scene<"):-1]]
     _report_frame("castle+teapot dense GI", ctx, out, times, card)
+    _print_profile("gi", ctx, FRAMES + 1, card)
     del ctx, out
 
     # ---- 5. the same frame small, on the card and on the CPU -----------
@@ -409,6 +586,7 @@ def main() -> int:
     _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, FRAMES, "hdda_scene")
     _check_launches(hdda.INSTANCE_LAUNCHES, dict.fromkeys(hdda.MODES, 0),
                     FRAMES, "hdda_instance")
+    stress_launches = dict(hdda.LAUNCHES)
     _report_frame("stress, batched route", stress, out, times, card)
 
     # ---- 7. the stress frame, loop route -------------------------------
@@ -474,6 +652,22 @@ def main() -> int:
     if not err < 0.01:
         raise SystemExit(f"card and CPU stress frames differ: RMSE {err:.5f}")
 
+    hash_launches, pool_held = _hash_phase(hdda, dev, card, reset_counts,
+                                           rmse)
+
+    for k in kernels:
+        if k["name"].startswith("hdda_scene<"):
+            mode = k["name"][len("hdda_scene<"):-1]
+            k["launches_by_path"] = {"gi": k["launches"],
+                                     "stress": stress_launches[mode],
+                                     "hash-reference": hash_launches[mode]}
+        if k["name"] == "hdda_scene<rough>":
+            k["hash_pool"] = {
+                w: dict(rays=HASH_POOL, active_rays=h["active_rays"],
+                        max_abs_err=h["err"], ms=h["ms"],
+                        plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
+                        bound_by=h["bound_by"])
+                for w, h in pool_held.items()}
     for mode in hdda.MODES:
         h = stress_held[mode]
         print(f"stress hdda_scene<{mode}>: {h['ms']:.3f} ms per launch at "

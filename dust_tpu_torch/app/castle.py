@@ -1,9 +1,10 @@
 """The castle demo on the PyTorch port: procgen castle (+ the animated
-teapot), the dense-GI frame, PNG output.
+teapot), the GI frame with either cache, PNG output.
 
 Usage:
   python -m dust_tpu_torch.app.castle --width 1920 --height 1080 \\
-      --frames 4 --teapot --out castle.png [--device cuda|cpu]
+      --frames 4 --teapot --out castle.png [--device cuda|cpu] \\
+      [--gi-cache dense|hash] [--hash-capacity N] [--surfels N]
 
 ``--device`` defaults to ``cuda`` and fails when no CUDA device is
 present; the CPU (every kernel's plain PyTorch version) runs only when
@@ -28,6 +29,11 @@ def main(argv=None) -> int:
     ap.add_argument("--eye", type=float, nargs=3, default=(122.0, 300.61, 54.45))
     ap.add_argument("--target", type=float, nargs=3, default=(0.0, 0.0, 0.0))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--hash-capacity", type=int, default=1 << 20)
+    ap.add_argument("--surfels", type=int, default=65536)
+    ap.add_argument("--gi-cache", choices=["dense", "hash"], default="dense",
+                    help="GI cache (dense = a row per leaf face, refreshed "
+                    "every frame; hash = the spatial hash with a surfel pool)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -39,7 +45,9 @@ def main(argv=None) -> int:
               "PyTorch versions on the CPU)", file=sys.stderr)
         return 2
 
-    from dust_tpu_torch.config import RenderSettings
+    from dust_tpu_torch.config import (
+        RenderSettings, SpatialHashSettings, SurfelSettings,
+    )
     from dust_tpu_torch.utils.image import write_png
     from dust_tpu_torch.vox import procgen
     from dust_tpu_torch.vox.loader import load_vox_scene
@@ -49,8 +57,11 @@ def main(argv=None) -> int:
     from dust_tpu_torch.render.pipeline import make_frame_state, render_frame
     from dust_tpu_torch.render.scene import build_device_scene
 
-    settings = RenderSettings(width=args.width, height=args.height,
-                              gi_cache="dense", traversal_backend="pallas")
+    settings = RenderSettings(
+        width=args.width, height=args.height,
+        spatial_hash=SpatialHashSettings(capacity=args.hash_capacity),
+        surfels=SurfelSettings(pool_size=args.surfels),
+        gi_cache=args.gi_cache, traversal_backend="pallas")
     vox_scene = load_vox_scene(procgen.castle_scene_bytes())
     anim_idx = procgen.add_teapot(vox_scene) if args.teapot else None
     scene = build_device_scene(vox_scene, device)
@@ -70,8 +81,8 @@ def main(argv=None) -> int:
             scene = scene.with_transforms(
                 procgen.teapot_motion(base_o2w, anim_idx, f))
         out, _aux, state = render_frame(scene, state, cam, sky,
-                                        bn.unitvec3_cosine, settings,
-                                        return_aux=False)
+                                        bn.unitvec3_cosine, bn.scalar,
+                                        settings, return_aux=False)
     img = out.cpu().numpy()
     dt = time.perf_counter() - t0
     write_png(args.out, img)

@@ -17,11 +17,16 @@ import torch
 __all__ = ["fma", "sqrt", "as_u32", "as_i32", "f16_bits", "bits_f16"]
 
 
+def _f64(x):
+    return x.double() if isinstance(x, torch.Tensor) else float(x)
+
+
 def fma(a, b, c):
     """``a*b + c`` rounded once to float32 (the float32 product is exact
     in float64, so only the final sum rounds twice, which changes the
-    result in a vanishing fraction of cases)."""
-    return (a.double() * b.double() + c.double()).float()
+    result in a vanishing fraction of cases). Any operand but one may be
+    a Python number holding a float32 value."""
+    return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
 def sqrt(x):

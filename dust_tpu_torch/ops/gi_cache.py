@@ -9,7 +9,9 @@ face * cells + cell``), three 32-bit words per row:
 
 Reads are one row gather; the insert is elementwise because the dense
 surfel pass enumerates the rows in order. The table is an int32 tensor
-holding the same bits as the reference's.
+holding the same bits as the reference's. The spatial-hash frame packs
+its per-frame working set (one hash probe per cell) into the same rows,
+so its ray-side reads are the same gather.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from dust_tpu_torch.render.scene import pad_rows_past_dead_zone
 
 __all__ = ["DenseGICache", "make_dense_gi_cache", "dense_rows", "dense_cells",
            "cell_layout", "padded_cells", "dense_index", "dense_get",
-           "dense_update", "dense_update_slice", "MAX_SAMPLE_COUNT"]
+           "dense_update", "dense_update_slice", "pack_working_set",
+           "pack_working_set_rows", "MAX_SAMPLE_COUNT"]
 
 MAX_SAMPLE_COUNT = 404
 CELL_PAD = 512
@@ -91,6 +94,23 @@ def make_dense_gi_cache(scene) -> DenseGICache:
     alb6 = _albedo_words(scene)
     zeros = torch.zeros_like(alb6)
     return DenseGICache(table=torch.stack([zeros, zeros, alb6], dim=-1))
+
+
+def pack_working_set_rows(radiance, count, albedo_col) -> torch.Tensor:
+    """(S, 3) int32 cache rows of probed ``radiance`` (S, 3) and ``count``
+    (S,), carrying the (S, 1) int32 albedo column through."""
+    cnt = torch.clamp(count, 0, MAX_SAMPLE_COUNT).long()
+    w0 = f16_bits(radiance[:, 0]) | (f16_bits(radiance[:, 1]) << 16)
+    w1 = f16_bits(radiance[:, 2]) | (cnt << 16)
+    return torch.cat([as_i32(w0)[:, None], as_i32(w1)[:, None], albedo_col],
+                     dim=-1)
+
+
+def pack_working_set(radiance, count, scene) -> DenseGICache:
+    """The hash frame's working set: one probed radiance and count per
+    (instance, leaf, face) row, with the rows' albedo words."""
+    return DenseGICache(table=pack_working_set_rows(
+        radiance, count, _albedo_words(scene)[:, None]))
 
 
 def dense_index(scene, inst, row, face) -> torch.Tensor:

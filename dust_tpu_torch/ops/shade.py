@@ -1,6 +1,7 @@
-"""Hit-attribute resolution (port of the parts of :mod:`dust_tpu.ops.shade`
-the dense-GI frame uses): the primary G-buffer from one voxel-row gather,
-and the analytic entry face of rough hits."""
+"""Hit-attribute resolution (port of :mod:`dust_tpu.ops.shade`): the
+primary G-buffer from one voxel-row gather, the spatial-hash key of a
+hit's leaf, and the analytic entry face and leaf centre of rough
+hits."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ import torch
 from dust_tpu_torch.ops import packing as pk
 from dust_tpu_torch.ops.fp import fma
 
-__all__ = ["resolve_hits", "entry_face"]
+__all__ = ["resolve_hits", "leaf_attributes", "entry_face",
+           "entry_leaf_center"]
 
 
 def _inst_xform(arrs, inst, p, with_translation: bool):
@@ -98,15 +100,50 @@ def resolve_hits(scene, res, origin_w, dir_w):
     )
 
 
-def entry_face(scene, res, origin_w, dir_w):
-    """World-space cube-face id of a rough hit: the hit lies on a block
-    grid plane; the entry axis is the one nearest that grid and the face
-    opposes the ray."""
+def _hit_obj(scene, res, origin_w, dir_w):
+    """(inst, object-space origin and direction, object-space hit point)
+    of each ray; miss lanes take instance 0 and t = 0."""
     inst = torch.clamp(res.inst, min=0).long()
     o_obj = _inst_xform(scene.world_to_obj, inst, origin_w, True)
     d_obj = _inst_xform(scene.world_to_obj, inst, dir_w, False)
     t = torch.where(res.inst >= 0, res.t, 0.0)
-    hit_obj = _along(o_obj, d_obj, t)
+    return inst, o_obj, d_obj, _along(o_obj, d_obj, t)
+
+
+def leaf_attributes(scene, res, origin_w, dir_w, cell_size: float = 4.0):
+    """The spatial-hash key of each hit's leaf (final_gather.rchit:38-55):
+    ``qpos``, the quantised world leaf centre, and ``face``, the face id
+    of the leaf-box normal at the hit."""
+    inst, _o, _d, hit_obj = _hit_obj(scene, res, origin_w, dir_w)
+    model = torch.tensor(scene.inst_model, dtype=torch.long,
+                         device=inst.device)[inst]
+    row = torch.clamp(res.row, 0, scene.leaf_origin.shape[1] - 1).long()
+    center_obj = scene.leaf_origin[model, row].float() + 2.0
+    n_world = _inst_xform(scene.obj_to_world, inst, hit_obj - center_obj,
+                          False)
+    center_w = _inst_xform(scene.obj_to_world, inst, center_obj, True)
+    return dict(hit=res.inst >= 0,
+                qpos=torch.trunc(center_w / cell_size).int(),
+                face=pk.normal_to_face_id(pk.cubed_normalize(n_world)))
+
+
+def entry_leaf_center(scene, res, origin_w, dir_w):
+    """World centre of a rough hit's leaf: the hit lies on the leaf box's
+    entry face, so a step of 0.05 voxels into the leaf, floored to the
+    4-voxel lattice, gives the leaf origin."""
+    inst, _o, d_obj, hit_obj = _hit_obj(scene, res, origin_w, dir_w)
+    dlen = pk.norm3(d_obj, keepdim=True)
+    p_in = fma(d_obj / torch.clamp(dlen, min=1e-20),
+               torch.full_like(dlen, 0.05), hit_obj)
+    center_obj = torch.floor(p_in * 0.25) * 4.0 + 2.0
+    return _inst_xform(scene.obj_to_world, inst, center_obj, True)
+
+
+def entry_face(scene, res, origin_w, dir_w):
+    """World-space cube-face id of a rough hit: the hit lies on a block
+    grid plane; the entry axis is the one nearest that grid and the face
+    opposes the ray."""
+    inst, _o, d_obj, hit_obj = _hit_obj(scene, res, origin_w, dir_w)
 
     v = hit_obj * 0.25
     fr = (v - torch.round(v)).abs()

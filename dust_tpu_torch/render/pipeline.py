@@ -1,19 +1,27 @@
 """The per-frame render pipeline (port of :mod:`dust_tpu.render.pipeline`).
 
-This is the headline frame of the reference: dense GI cache, the HDDA
-traversal kernel for every trace, reference-mode sun shadows and the
-half-resolution indirect denoise. Per frame:
+Both of the reference's GI caches: the dense cache (one row per
+(instance, leaf, face) cell, every cell refreshed each frame; the
+headline frame) and the spatial hash (the renderer's default; a surfel
+pool refreshes it). Every trace goes through the HDDA traversal kernel;
+sun shadows are reference-mode and the indirect is denoised at half
+resolution. Per frame:
 
 1. **primary** — precise trace from the camera; the G-buffer; misses
    write sky radiance straight to the output.
 2. **sun NEE** — one fused AO-threshold + rough shadow walk per hit.
 3. **AO** then **final gather** — one cosine ray per hit (blue noise),
    traced to the AO threshold, then continued rough; final-gather hits
-   read the dense GI cache.
-4. **surfel refresh** — every (instance, leaf, face) cell shoots a sun
-   ray and a cosine ray and folds the result into its cache row; when
-   the cache has more rows than ``dense_refresh_budget``, a rotating
-   slice of that many rows per frame.
+   read the GI cache. The hash frame first probes the hash once per
+   cell into dense-cache rows (the working set), so its reads are the
+   dense gather too, and enqueues hit cells into the surfel pool by
+   blue noise.
+4. **surfel refresh** — dense: every (instance, leaf, face) cell shoots
+   a sun ray and a cosine ray and folds the result into its cache row;
+   when the cache has more rows than ``dense_refresh_budget``, a
+   rotating slice of that many rows per frame. Hash: every valid pool
+   surfel (or a rotating ``pool_refresh_budget`` slice) does the same
+   and inserts at its own cell; hit cells not yet cached requeue.
 5. **post** — half-res temporal + à-trous denoise of the indirect,
    joint-bilateral upsample, auto-exposure, ACES tonemap.
 
@@ -21,7 +29,9 @@ Six traces per frame: precise, ao_fg, ao_threshold and three rough; each
 is one launch of the scene kernel, or with ``DUST_PALLAS_SCENE=loop``
 one launch of the single-instance kernel per instance
 (:mod:`dust_tpu_torch.ops.hdda`). Settings the port does not cover yet
-raise ``NotImplementedError`` naming their ROADMAP item.
+raise ``NotImplementedError`` naming their ROADMAP item. The slices of
+the working set and the pool are chosen on the host from the Python
+``frame_index``, so the frame branches on no tensor's value.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from dust_tpu_torch.ops import noise as noiselib
 from dust_tpu_torch.ops import packing as pk
 from dust_tpu_torch.ops import shade
 from dust_tpu_torch.ops import sky as skylib
+from dust_tpu_torch.ops import spatial_hash as sh
 from dust_tpu_torch.ops import tonemap as tonemaplib
 from dust_tpu_torch.ops.fp import fma
 from dust_tpu_torch.ops.hdda import trace_scene, trace_scene_ao_fg
@@ -48,26 +59,31 @@ from dust_tpu_torch.utils import color as colorlib
 from dust_tpu_torch.vox.geometry import unpack_r10g10b10a2
 
 __all__ = ["FrameState", "make_frame_state", "render_frame",
-           "state_from_numpy"]
+           "state_from_numpy", "frame_ray_count"]
+
+INVALID_SURFEL = 7  # a pool row whose face id is >= 6 is empty
 
 
 @dataclasses.dataclass(frozen=True)
 class FrameState:
     """Everything carried from frame to frame."""
 
-    gi: gilib.DenseGICache              # dense GI cache table
-    surfels: torch.Tensor               # (0, 4): dense mode has no pool
+    gi: gilib.DenseGICache | sh.SpatialHash  # by settings.gi_cache
+    # Hash mode: the surfel pool, (P, 4) float32 rows [x, y, z, face id].
+    # Dense mode has no pool: (0, 4).
+    surfels: torch.Tensor
     denoiser: denoiselib.DenoiserState  # half-res packed history
     exposure_avg: torch.Tensor          # () float32
     frame_index: int
     prev_view_proj: torch.Tensor        # (4, 4) float32
+    # Hash mode with ws_refresh_slices > 1: the working set, whose
+    # rotating slice is re-probed each frame. None otherwise.
+    gi_ws: gilib.DenseGICache | None = None
 
 
 def _check_settings(settings: RenderSettings):
     """The settings this port covers; the rest name their ROADMAP item."""
     unported = []
-    if settings.gi_cache != "dense":
-        unported.append("gi_cache='hash' (Queue 1, 'Hash GI')")
     if settings.traversal_backend != "pallas":
         unported.append("traversal_backend='jnp' (Queue 1, 'Eager "
                         "traversal backend')")
@@ -75,9 +91,6 @@ def _check_settings(settings: RenderSettings):
             and settings.width % 2 == 0):
         unported.append("full-resolution denoise (Queue 1, 'The other frame "
                         "branches')")
-    if settings.debug_visualize_spatial_hash:
-        unported.append("debug_visualize_spatial_hash (Queue 1, 'The other "
-                        "frame branches')")
     if settings.shadow_mode != "reference":
         unported.append("shadow_mode='precise' (Queue 1, 'The other frame "
                         "branches')")
@@ -91,37 +104,77 @@ def _check_settings(settings: RenderSettings):
 
 
 def make_frame_state(settings: RenderSettings, scene, device) -> FrameState:
+    """The first frame's state: an empty cache (hash mode: a zero table
+    of ``spatial_hash.capacity`` slots and a pool of ``pool_size`` empty
+    surfels), on ``device``."""
     _check_settings(settings)
+    gi_ws = None
+    if settings.gi_cache == "dense":
+        gi = gilib.make_dense_gi_cache(scene)
+        surfels = torch.zeros((0, 4), device=device)
+    else:
+        gi = sh.make_spatial_hash(settings.spatial_hash.capacity, device)
+        surfels = torch.zeros((settings.surfels.pool_size, 4), device=device)
+        surfels[:, 3] = float(INVALID_SURFEL)
+        if settings.spatial_hash.ws_refresh_slices > 1:
+            gi_ws = gilib.make_dense_gi_cache(scene)
     return FrameState(
-        gi=gilib.make_dense_gi_cache(scene),
-        surfels=torch.zeros((0, 4), device=device),
+        gi=gi,
+        surfels=surfels,
         denoiser=denoiselib.make_denoiser_state(settings.height // 2,
                                                 settings.width // 2, device),
         exposure_avg=torch.tensor(1.0, device=device),
         frame_index=0,
         prev_view_proj=torch.eye(4, device=device),
+        gi_ws=gi_ws,
     )
 
 
 def state_from_numpy(fields: dict, device) -> FrameState:
     """Carry a reference :class:`dust_tpu.render.pipeline.FrameState`
-    (dense mode) into the port. ``fields``: ``gi`` (the cache table),
-    ``surfels``, ``denoiser`` (the packed history), ``exposure_avg``,
-    ``frame_index``, ``prev_view_proj``, as numpy arrays."""
+    into the port. ``fields``: ``gi`` (the cache table: (R, 3) dense rows
+    or the hash's (C/4, 16) group rows), ``surfels``, ``denoiser`` (the
+    packed history), ``exposure_avg``, ``frame_index``,
+    ``prev_view_proj``, and in hash mode ``gi_ws`` (the working set's
+    table, or None), as numpy arrays."""
     def t(a, dtype):
         a = np.array(a, copy=True, order="C")
         a = a.view(dtype) if a.dtype.kind in "ui" else a.astype(dtype)
         return torch.from_numpy(a).to(device)
 
+    table = t(fields["gi"], np.int32)
+    gi_ws = fields.get("gi_ws")
     return FrameState(
-        gi=gilib.DenseGICache(table=t(fields["gi"], np.int32)),
+        gi=(sh.SpatialHash(table=table) if table.shape[1] == 16
+            else gilib.DenseGICache(table=table)),
         surfels=t(fields["surfels"], np.float32),
         denoiser=denoiselib.DenoiserState(history=t(fields["denoiser"],
                                                     np.int32)),
         exposure_avg=t(fields["exposure_avg"], np.float32),
         frame_index=int(fields["frame_index"]),
         prev_view_proj=t(fields["prev_view_proj"], np.float32),
+        gi_ws=None if gi_ws is None else gilib.DenseGICache(
+            table=t(gi_ws, np.int32)),
     )
+
+
+def _pool_enqueue_mod(dest, mask, values):
+    """Enqueue ``values[i]`` where ``mask[i]`` into pool slot ``i % P``
+    (the reference's surfel mapping); of the candidates for one slot the
+    lowest index wins, and a slot with none keeps ``dest``."""
+    size = dest.shape[0]
+    n = mask.shape[0]
+    k = -(-n // size)
+    pad = k * size - n
+    m = torch.cat([mask, mask.new_zeros(pad)]).reshape(k, size)
+    v = torch.cat([values, values.new_zeros((pad,) + values.shape[1:])])
+    v = v.reshape((k, size) + values.shape[1:])
+    rows = torch.arange(k, device=mask.device)[:, None]
+    winner = torch.where(m, rows, k).amin(dim=0)   # k where no candidate
+    picked = torch.gather(
+        v, 0, torch.clamp(winner, max=k - 1)[None, :, None].expand(
+            1, size, v.shape[2]))[0]
+    return torch.where((winner < k)[:, None], picked, dest)
 
 
 def _pcg_scalar(v):
@@ -176,11 +229,47 @@ def _tiling(H: int, W: int):
     return to_tiles, from_tiles
 
 
+def _working_set(scene, state: FrameState, settings: RenderSettings,
+                 frame_index: int):
+    """The hash frame's GI reads: one ``hash_get`` per (instance, leaf,
+    face) cell packed into dense-cache rows, so that every ray-side read
+    is the dense gather. With ``ws_refresh_slices`` N > 1 only the
+    frame's rotating 1/N slice is probed and the rest keeps its last
+    probe. Returns (the cache to read, the new ``gi_ws``)."""
+    centers_w, vleaf = _cell_enumeration(scene)
+    cells = centers_w.shape[0]
+    face6 = torch.arange(6, dtype=torch.int32,
+                         device=scene.device)[:, None].expand(6, cells)
+    qpos6, face6 = sh.spatial_hash_key(centers_w.repeat(6, 1),
+                                       face6.reshape(-1),
+                                       settings.spatial_hash.cell_size)
+    valid6 = vleaf.repeat(6)
+    nslices = settings.spatial_hash.ws_refresh_slices
+    if nslices > 1 and state.gi_ws is not None:
+        rows_total = qpos6.shape[0]
+        size = -(-rows_total // nslices)
+        start = min((frame_index % nslices) * size, rows_total - size)
+        window = slice(start, start + size)
+        found, rad, cnt = sh.hash_get(state.gi, qpos6[window], face6[window])
+        cnt = torch.where(found & valid6[window], cnt, 0)
+        table = state.gi_ws.table.clone()
+        table[window] = gilib.pack_working_set_rows(rad, cnt,
+                                                    table[window, 2:3])
+        ws = gilib.DenseGICache(table=table)
+        return ws, ws
+    found, rad, cnt = sh.hash_get(state.gi, qpos6, face6)
+    cnt = torch.where(found & valid6, cnt, 0)
+    return gilib.pack_working_set(rad, cnt, scene), state.gi_ws
+
+
 def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
                  sky_state: skylib.SkyModelState, bn_cosine: torch.Tensor,
-                 settings: RenderSettings, return_aux: bool = True):
+                 bn_scalar: torch.Tensor, settings: RenderSettings,
+                 return_aux: bool = True):
     """Render one frame. Returns (output_srgb (H, W, 3), aux dict, new
-    state). ``bn_cosine``: the (64, 128, 128, 3) cosine blue-noise table."""
+    state). ``bn_cosine``: the (64, 128, 128, 3) cosine blue-noise table;
+    ``bn_scalar``: the (64, 128, 128, 1) scalar table (the hash frame's
+    enqueue and requeue draws)."""
     _check_settings(settings)
     H, W = settings.height, settings.width
     n = H * W
@@ -189,6 +278,8 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
     rand = _pcg_scalar(frame_index)
     layer = frame_index % bn_cosine.shape[0]
     to_tiles, from_tiles = _tiling(H, W)
+    dense = settings.gi_cache == "dense"
+    cell_size = settings.spatial_hash.cell_size
 
     def fill(mask, yes, no):
         return torch.where(mask, yes, no).float()
@@ -238,9 +329,13 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
                      torch.where(fg_active, cam.far, -1.0), "rough")
     fg_hit = fg_active & fg.hit
 
-    gi_reads = state.gi
+    if dense:
+        gi_reads, new_gi_ws = state.gi, state.gi_ws
+    else:
+        gi_reads, new_gi_ws = _working_set(scene, state, settings,
+                                           frame_index)
     face = shade.entry_face(scene, fg, hit_loc, gi_dir)
-    _found, cached, _cnt, alb_u32 = gilib.dense_get(
+    _found, cached, cnt, alb_u32 = gilib.dense_get(
         gi_reads, gilib.dense_index(scene, fg.inst, fg.row, face), fg_hit)
     albedo_lin = colorlib.srgb_eotf(unpack_r10g10b10a2(alb_u32)[:, :3])
     indirect = colorlib.srgb_to_acescg(
@@ -252,32 +347,69 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
         illum = illum + torch.where((fg_active & ~fg.hit)[:, None],
                                     skylib.sky_radiance(sky_state, gi_dir), 0.0)
 
+    surfels = state.surfels
+    if not dense:
+        # Stochastic enqueue of final-gather hit cells: pool slot = ray
+        # index % pool size, the lowest index wins.
+        p_sched = 1.0 / (cnt + 2.0)
+        noise0 = to_tiles(noiselib.bn_fetch(bn_scalar, layer, (34, 21), rand,
+                                            H, W))[:, 0]
+        enqueue = fg_hit & (noise0 > p_sched)
+        center_fg = shade.entry_leaf_center(scene, fg, hit_loc, gi_dir)
+        surfels = _pool_enqueue_mod(
+            surfels, enqueue, torch.cat([center_fg, face.float()[:, None]],
+                                        dim=-1))
+    if settings.debug_visualize_spatial_hash:
+        # Show the cache: the primary hit cell's cached radiance.
+        dbg = shade.leaf_attributes(scene, primary, origins, dirs, cell_size)
+        if dense:
+            _, dbg_rad, _, _ = gilib.dense_get(
+                gi_reads, gilib.dense_index(scene, primary.inst, primary.row,
+                                            dbg["face"]), hit)
+        else:
+            _, dbg_rad, _ = sh.hash_get(state.gi, dbg["qpos"], dbg["face"])
+        illum = torch.where(hit[:, None], dbg_rad, illum)
+
     hitdist = torch.where(ao_hit, ao.t, 0.0)
     hitdist = torch.where(fg_hit, fg.t, hitdist)
     radiance_img = torch.where(hit[:, None], direct + illum, sky_out)
     hitdist = torch.where(hit, hitdist, 100000.0)
 
     # -------------------------------------------------- 4. surfel refresh
-    # The pool is the cell list, face-major: row = face * cells + cell.
-    centers_w, vleaf = _cell_enumeration(scene)
-    C = centers_w.shape[0]
-    surfel_pos = centers_w.repeat(6, 1)
-    surfel_dir = torch.arange(6, dtype=torch.int32,
-                              device=dev)[:, None].expand(6, C).reshape(-1)
-    s_valid = vleaf.repeat(6)
-    # Refresh budget: big scenes patch a rotating contiguous slice of
-    # ``budget`` rows per frame.
-    rows_total = surfel_pos.shape[0]
-    budget = settings.surfels.dense_refresh_budget
     slice_start = None
-    if budget and rows_total > budget:
-        nslices = -(-rows_total // budget)
-        slice_start = min((frame_index % nslices) * budget,
-                          rows_total - budget)
-        window = slice(slice_start, slice_start + budget)
-        surfel_pos = surfel_pos[window]
-        surfel_dir = surfel_dir[window]
-        s_valid = s_valid[window]
+    if dense:
+        # The pool is the cell list, face-major: row = face * cells + cell.
+        centers_w, vleaf = _cell_enumeration(scene)
+        C = centers_w.shape[0]
+        surfel_pos = centers_w.repeat(6, 1)
+        surfel_dir = torch.arange(6, dtype=torch.int32,
+                                  device=dev)[:, None].expand(6, C).reshape(-1)
+        s_valid = vleaf.repeat(6)
+        # Refresh budget: big scenes patch a rotating contiguous slice of
+        # ``budget`` rows per frame.
+        rows_total = surfel_pos.shape[0]
+        budget = settings.surfels.dense_refresh_budget
+        if budget and rows_total > budget:
+            nslices = -(-rows_total // budget)
+            slice_start = min((frame_index % nslices) * budget,
+                              rows_total - budget)
+            window = slice(slice_start, slice_start + budget)
+            surfel_pos = surfel_pos[window]
+            surfel_dir = surfel_dir[window]
+            s_valid = s_valid[window]
+    else:
+        # The pool, or under a refresh budget its rotating slice.
+        pool_rows = surfels
+        pbudget = settings.surfels.pool_refresh_budget
+        if pbudget and surfels.shape[0] > pbudget:
+            nslices = -(-surfels.shape[0] // pbudget)
+            slice_start = min((frame_index % nslices) * pbudget,
+                              surfels.shape[0] - pbudget)
+            pool_rows = surfels[slice_start:slice_start + pbudget]
+        surfel_pos = pool_rows[:, :3]
+        surfel_dir = pool_rows[:, 3].int()
+        s_valid = surfel_dir < 6
+        surfel_dir = torch.clamp(surfel_dir, max=5)
     p = surfel_pos.shape[0]
     s_normal = pk.face_id_to_normal(surfel_dir)
     s_origin = fma(torch.full_like(s_normal, 2.01), s_normal, surfel_pos)
@@ -300,7 +432,7 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
                         fill(s_valid, 10000.0, -1.0), "rough")
     s_hit = s_valid & s_res.hit
     s_face = shade.entry_face(scene, s_res, s_origin, s_dir)
-    s_found, s_cached, _s_cnt, s_alb_u32 = gilib.dense_get(
+    s_found, s_cached, s_cnt, s_alb_u32 = gilib.dense_get(
         gi_reads, gilib.dense_index(scene, s_res.inst, s_res.row, s_face),
         s_hit)
     s_albedo_lin = colorlib.srgb_eotf(unpack_r10g10b10a2(s_alb_u32)[:, :3])
@@ -308,14 +440,34 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
         colorlib.acescg_to_srgb(s_cached) * s_albedo_lin)
     s_sky = skylib.sky_radiance(
         sky_state, s_dir / torch.clamp(pk.norm3(s_dir, keepdim=True), min=1e-8))
+    # Insert at the surfel's own cell: the bounce on a cached hit, the
+    # sky on a miss.
     insert_val = torch.where(s_hit[:, None], s_bounce + s_payload,
                              s_sky + s_payload)
     insert_ok = s_valid & (~s_hit | s_found)
-    if slice_start is None:
+    if dense and slice_start is None:
         new_gi = gilib.dense_update(state.gi, insert_val, insert_ok)
-    else:
+    elif dense:
         new_gi = gilib.dense_update_slice(state.gi, slice_start, insert_val,
                                           insert_ok)
+    else:
+        new_gi = sh.hash_insert(
+            state.gi, *sh.spatial_hash_key(surfel_pos, surfel_dir, cell_size),
+            insert_val, frame_index, valid=insert_ok,
+            max_updates=settings.spatial_hash.insert_cap or None)
+        # A hit cell not in the cache requeues into the surfel's own slot.
+        s_noise = noiselib.bn_fetch_pool(bn_scalar, layer, (114, 40), rand,
+                                         p)[:, 0]
+        s_requeue = s_hit & ~s_found & (s_noise > 1.0 / (s_cnt + 2.0))
+        s_center = shade.entry_leaf_center(scene, s_res, s_origin, s_dir)
+        requeued = torch.where(
+            s_requeue[:, None],
+            torch.cat([s_center, s_face.float()[:, None]], dim=-1), pool_rows)
+        if slice_start is None:
+            surfels = requeued
+        else:
+            surfels = surfels.clone()
+            surfels[slice_start:slice_start + p] = requeued
 
     # -------------------------------------------------- 5. post (half res)
     dep2 = from_tiles(g["depth"])
@@ -351,17 +503,24 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
         denoised=denoised, exposure=exposure,
     ) if return_aux else {}
     new_state = FrameState(
-        gi=new_gi, surfels=state.surfels, denoiser=new_den,
+        gi=new_gi, surfels=surfels, denoiser=new_den,
         exposure_avg=new_avg, frame_index=frame_index + 1,
-        prev_view_proj=cam.view_proj)
+        prev_view_proj=cam.view_proj, gi_ws=new_gi_ws)
     return output, aux, new_state
 
 
 def frame_ray_count(scene, settings: RenderSettings) -> int:
     """Rays per frame as the reference's bench counts them: four
-    full-resolution launches plus two rays per valid dense-cache cell,
-    or, under a refresh budget, per valid cell of the frame's slice
-    (``budget`` rows times the valid fraction of all rows)."""
+    full-resolution launches plus two rays per surfel. Hash mode: per
+    pool slot, or per slot of the frame's slice under a pool budget.
+    Dense mode: per valid cache cell, or, under a refresh budget, per
+    valid cell of the frame's slice (``budget`` rows times the valid
+    fraction of all rows)."""
+    if settings.gi_cache != "dense":
+        pool = settings.surfels.pool_size
+        budget = settings.surfels.pool_refresh_budget
+        patch = min(pool, budget) if budget else pool
+        return settings.width * settings.height * 4 + patch * 2
     valid = (scene.mask_lo | scene.mask_hi) != 0
     counts = valid.sum(dim=1).tolist()
     patch_cells = sum(counts[m] for m in scene.inst_model) * 6

@@ -16,8 +16,9 @@ import numpy as np
 import torch
 
 __all__ = ["SRGB_TO_ACESCG", "ACESCG_TO_SRGB", "XYZ_TO_ACESCG",
-           "apply_mat3", "srgb_to_acescg", "acescg_to_srgb",
-           "xyz_to_acescg", "srgb_eotf", "srgb_oetf_np", "luminance_rec601"]
+           "ACESCG_TO_XYZ", "apply_mat3", "srgb_to_acescg", "acescg_to_srgb",
+           "xyz_to_acescg", "acescg_to_xyz", "srgb_eotf", "srgb_oetf_np",
+           "luminance_rec601"]
 
 # color.glsl sRGB2AECScg / AECScg2sRGB (column-major in GLSL; rows here).
 SRGB_TO_ACESCG = np.array(
@@ -44,6 +45,14 @@ XYZ_TO_ACESCG = np.array(
     ],
     dtype=np.float32,
 )
+ACESCG_TO_XYZ = np.array(
+    [
+        [0.66245437, 0.13400422, 0.15618773],
+        [0.2722288, 0.6740818, 0.05368953],
+        [-0.0055746622, 0.00406073, 1.0103393],
+    ],
+    dtype=np.float32,
+)
 
 
 def apply_mat3(v: torch.Tensor, m) -> torch.Tensor:
@@ -63,6 +72,10 @@ def acescg_to_srgb(v):
 
 def xyz_to_acescg(v):
     return apply_mat3(v, XYZ_TO_ACESCG)
+
+
+def acescg_to_xyz(v):
+    return apply_mat3(v, ACESCG_TO_XYZ)
 
 
 def srgb_eotf(c):

@@ -68,7 +68,7 @@ def render_both():
                                            jbn.unitvec3_cosine, jbn.scalar,
                                            jset)
         to, taux, tst = tpipe.render_frame(ts, tst, tc, tsk,
-                                           tbn.unitvec3_cosine, s)
+                                           tbn.unitvec3_cosine, tbn.scalar, s)
         out["jax"].append((np.asarray(jo), np.asarray(jaux["depth"])))
         out["torch"].append((to.numpy(), taux["depth"].numpy()))
         out["jax_states"].append(_jax_state_numpy(jst))
@@ -111,7 +111,8 @@ def test_carried_state_gives_the_reference_cache(frames):
     np.testing.assert_array_equal(state1.gi.table.numpy(),
                                   frames["jax_states"][0]["gi"])
     _out, _aux, state2 = tpipe.render_frame(ts, state1, tc, tsk,
-                                            tbn.unitvec3_cosine, SETTINGS)
+                                            tbn.unitvec3_cosine, tbn.scalar,
+                                            SETTINGS)
     rad_r, cnt_r, alb_r = _cache_rows(frames["jax_states"][1]["gi"])
     rad_t, cnt_t, alb_t = _cache_rows(state2.gi.table.numpy())
     live = (cnt_r > 0) | (cnt_t > 0)
@@ -135,14 +136,14 @@ def test_frame_runs_six_traces(frames, monkeypatch):
 
     monkeypatch.setattr(hdda, "hdda", record)
     st = tpipe.make_frame_state(SETTINGS, ts, "cpu")
-    tpipe.render_frame(ts, st, tc, tsk, tbn.unitvec3_cosine, SETTINGS)
+    tpipe.render_frame(ts, st, tc, tsk, tbn.unitvec3_cosine, tbn.scalar,
+                       SETTINGS)
     assert modes == ["precise", "ao_fg", "ao_threshold", "rough", "rough",
                      "rough"]
 
 
 @pytest.mark.parametrize("change", [
-    dict(gi_cache="hash"), dict(traversal_backend="jnp"),
-    dict(debug_visualize_spatial_hash=True), dict(shadow_mode="precise"),
+    dict(traversal_backend="jnp"), dict(shadow_mode="precise"),
     dict(width=129, height=72), dict(instance_materials=(1,)),
 ])
 def test_unported_settings_raise(frames, change):
@@ -150,4 +151,4 @@ def test_unported_settings_raise(frames, change):
     s = dataclasses.replace(SETTINGS, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         st = tpipe.make_frame_state(SETTINGS, ts, "cpu")
-        tpipe.render_frame(ts, st, tc, tsk, tbn.unitvec3_cosine, s)
+        tpipe.render_frame(ts, st, tc, tsk, tbn.unitvec3_cosine, tbn.scalar, s)

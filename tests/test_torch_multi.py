@@ -259,7 +259,7 @@ def test_stress_frame_ray_count_matches_bench(stress):
     vox, _, js = stress
     from dust_tpu_torch.render.scene import build_device_scene as tbuild
 
-    s = RenderSettings(width=1920, height=1080)
+    s = RenderSettings(width=1920, height=1080, gi_cache="dense")
     valid = (np.asarray(js.mask_lo) | np.asarray(js.mask_hi)) != 0
     cells = int(valid.sum(axis=1)[np.asarray(js.inst_model)].sum()) * 6
     rows = dense_rows(js)
@@ -321,7 +321,7 @@ def frames(scenes):
                                            jbn.unitvec3_cosine, jbn.scalar,
                                            jset)
         to, taux, tst = tpipe.render_frame(ts, tst, tc, tsk,
-                                           tbn.unitvec3_cosine, s)
+                                           tbn.unitvec3_cosine, tbn.scalar, s)
         out["jax"].append((np.asarray(jo), np.asarray(jaux["depth"])))
         out["torch"].append((to.numpy(), taux["depth"].numpy()))
         out["jax_states"].append(_jax_state_numpy(jst))
@@ -357,7 +357,7 @@ def test_budgeted_refresh_rotates_like_reference(frames):
     s = frames["settings"]
     state1 = tpipe.state_from_numpy(frames["jax_states"][0], "cpu")
     _out, _aux, state2 = tpipe.render_frame(ts, state1, tc, tsk,
-                                            tbn.unitvec3_cosine, s)
+                                            tbn.unitvec3_cosine, tbn.scalar, s)
     before = frames["jax_states"][0]["gi"]
     rad_r, cnt_r, alb_r = _cache_rows(frames["jax_states"][1]["gi"])
     rad_t, cnt_t, alb_t = _cache_rows(state2.gi.table.numpy())
@@ -379,7 +379,9 @@ def test_loop_route_frame_matches_batched_route(frames, monkeypatch):
     s = frames["settings"]
     st = tpipe.make_frame_state(s, ts, "cpu")
     monkeypatch.delenv("DUST_PALLAS_SCENE", raising=False)
-    a, _, _ = tpipe.render_frame(ts, st, tc, tsk, tbn.unitvec3_cosine, s)
+    a, _, _ = tpipe.render_frame(ts, st, tc, tsk, tbn.unitvec3_cosine,
+                                 tbn.scalar, s)
     monkeypatch.setenv("DUST_PALLAS_SCENE", "loop")
-    b, _, _ = tpipe.render_frame(ts, st, tc, tsk, tbn.unitvec3_cosine, s)
+    b, _, _ = tpipe.render_frame(ts, st, tc, tsk, tbn.unitvec3_cosine,
+                                 tbn.scalar, s)
     assert rmse(a.numpy(), b.numpy()) < 0.01

@@ -172,6 +172,15 @@ def test_render_settings_equal():
         Ref(**kw))
 
 
+@pytest.mark.parametrize("name", ["SRGB_TO_ACESCG", "ACESCG_TO_SRGB",
+                                  "XYZ_TO_ACESCG", "ACESCG_TO_XYZ"])
+def test_colour_constants_equal(name):
+    from dust_tpu.utils import color as ref
+    from dust_tpu_torch.utils import color as port
+    a, b = getattr(port, name), getattr(ref, name)
+    assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 @pytest.mark.parametrize("name", ["bluenoise128.npy", "hosek_sky.npz",
                                   "stbn128x64.npy"])
 def test_assets_byte_equal(name):
