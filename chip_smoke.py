@@ -50,11 +50,33 @@ Run from the root of a checkout:  python3 chip_smoke.py
 10. renders a 256x144 hash frame (2^16 slots, a 4096-surfel pool) on the
    card and on the CPU for 2 frames: image RMSE < 0.01, and the two
    tables agree on fingerprint, last frame and sample count in >= 99%
-   of the occupied slots.
+   of the occupied slots;
+11. primary-shadow (bench.py --config primary-shadow, the frame without
+   GI): 4 frames at 1920x1080, 2 scene-kernel launches per frame
+   (precise, ao_fg), ms/frame and Mrays/s at 2*W*H rays;
+12. gi-4k (3840x2160): the scene kernel held against its plain version
+   on 65,536 of each mode's rays (torch.equal) and graph-timed on each
+   full launch against its bound; then 4 frames, 6 launches per frame;
+13. flythrough (gi-4k, the camera orbiting): 4 frames, 6 launches each;
+14. precise sun shadows (precise x2, ao_threshold, rough x3 per frame)
+   and the full-resolution denoise, split and lumped: 2 frames each at
+   1920x1080, and each at 256x144 on the card and on the CPU (RMSE <
+   0.01);
+15. the eager backend (traversal_backend="jnp", torch ops, no kernel
+   launch): the gi frame at 1920x1080 (960x540 if a frame takes over
+   10 s, and says so), timed at several lane-retirement intervals, then
+   4 frames; one frame against the kernel's backend (RMSE < 0.01, hit
+   masks >= 99.5%); its traversal on the card against the same on the
+   CPU on 65,536 sampled rays per mode (every (inst, row, bit) equal);
+16. tests/test_quality.py's converged-ground-truth gates at its bounds
+   and frame counts (tests/golden/castle_gt_256x256.npz, loaded with
+   numpy), on the kernel's backend.
 
-Before the result it prints each scene-kernel mode's time per launch at
-the stress frame's shapes with its share of the bound, the kernels line
-{"kernels": [...]} and the card's name and power limit.
+Every config is built and rendered through the bench module
+(dust_tpu_torch/bench.py). Before the result it prints each scene-kernel
+mode's time per launch at the stress frame's shapes with its share of the
+bound, the kernels line {"kernels": [...]} and the card's name and power
+limit.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails. The last line is the result:
@@ -63,7 +85,6 @@ phase fails. The last line is the result:
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -80,76 +101,69 @@ F32_FLOPS_PER_S = 67e12
 # an FMA counts 2), which every ray does for every instance. The walk's
 # own operations depend on the data and are not counted.
 SETUP_FLOPS = 61
-# Camera eyes of bench.py's configs; all look at the origin.
-EYES = {"gi": (122.0, 300.61, 54.45), "stress": (260.0, 420.0, 180.0),
-        "hash-reference": (122.0, 300.61, 54.45)}
-# bench.py --config hash-reference: the reference's cache scale.
-HASH_CAPACITY = 1 << 25
+# bench.py --config hash-reference: the surfel pool.
 HASH_POOL = 720 * 480
+WIDTH_4K, HEIGHT_4K = 3840, 2160
 STRESS_INSTANCES = 11
-# Scene-kernel launches per frame, per mode.
+# Scene-kernel launches per frame, per mode: the GI frame, the frame
+# without GI (primary-shadow) and the GI frame with precise sun shadows.
 SCENE_LAUNCHES = {"precise": 1, "ao_fg": 1, "ao_threshold": 1, "rough": 3}
+NO_GI_LAUNCHES = {"precise": 1, "ao_fg": 1, "ao_threshold": 0, "rough": 0}
+PRECISE_LAUNCHES = {"precise": 2, "ao_fg": 0, "ao_threshold": 1, "rough": 3}
+NO_LAUNCHES = {"precise": 0, "ao_fg": 0, "ao_threshold": 0, "rough": 0}
+# The eager backend: a 1080p frame over this many seconds is cut to
+# 960x540; the lane-retirement intervals it is timed at.
+EAGER_MAX_S = 10.0
+SYNC_CHOICES = (1, 4, 8, 16, 32, 256, 32, 16, 8, 4)
+# tests/test_quality.py's converged-ground-truth gates: the bounds, the
+# frame counts, and tests/quality_setup.py's camera, hash and pool.
+GT_PATH = os.path.join("tests", "golden", "castle_gt_256x256.npz")
+GT_EYE, GT_TARGET = (150.0, 90.0, 180.0), (0.0, 30.0, 0.0)
+GT_CAPACITY, GT_POOL = 1 << 18, 16384
+RMSE_DENOISED = 0.045
+HALF_RES_EXTRA = 0.017
+RMSE_HALF_CONVERGED = 0.055
+RMSE_DENSE = 0.045
+RMSE_HASH = 0.045
+GT_FRAMES, GT_CONV_FRAMES, GT_CONV_AVG = 16, 32, 16
 REPLACES = "dust_tpu/ops/pallas_trace.py:"
 
 
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+def _setup(device, width, height, config="gi", capacity=None, pool=None,
+           tile=None, **changes):
+    """Scene, camera and state of bench.py's ``config`` as the port's
+    bench module builds them (dust_tpu_torch/bench.py), on the HDDA
+    kernel's backend unless ``changes`` say otherwise; ``capacity`` and
+    ``pool`` resize the hash and the surfel pool, ``tile`` is the eager
+    backend's rays per walk, ``changes`` replace RenderSettings fields."""
+    import dataclasses
+
+    from dust_tpu_torch import bench
+
+    argv = ["--config", config, "--width", str(width), "--height",
+            str(height), "--device", str(device), "--backend", "pallas"]
+    if tile:
+        argv += ["--tile", str(tile)]
+    args = bench.parse_args(argv)
+    settings = bench.settings_for(args)
+    if capacity:
+        changes["spatial_hash"] = dataclasses.replace(settings.spatial_hash,
+                                                      capacity=capacity)
+    if pool:
+        changes["surfels"] = dataclasses.replace(settings.surfels,
+                                                 pool_size=pool)
+    settings = dataclasses.replace(settings, **changes)
+    return bench.setup(args, device, settings)
 
 
-def _setup(device, width, height, config="gi", capacity=HASH_CAPACITY,
-           pool=HASH_POOL):
-    """Scene, camera and state of bench.py's ``config`` (gi: castle +
-    animated teapot; stress: procgen.stress_scene, last teapot animated;
-    hash-reference: the gi scene with the spatial hash of ``capacity``
-    slots and a ``pool``-surfel pool)."""
-    from dust_tpu_torch.config import (RenderSettings, SpatialHashSettings,
-                                       SurfelSettings)
-    from dust_tpu_torch.vox import procgen
-    from dust_tpu_torch.vox.loader import load_vox_scene
-    from dust_tpu_torch.ops import camera as cameralib
-    from dust_tpu_torch.ops.noise import load_blue_noise
-    from dust_tpu_torch.ops.sky import bake_sky
-    from dust_tpu_torch.render.pipeline import make_frame_state
-    from dust_tpu_torch.render.scene import build_device_scene
+def _render(ctx, f, state, return_aux=False):
+    """Frame ``f`` (animated teapot; on flythrough the camera moves) from
+    ``state`` through the bench module: (output, new state), or (output,
+    aux, new state) with ``return_aux``."""
+    from dust_tpu_torch import bench
 
-    if config == "hash-reference":
-        settings = RenderSettings(
-            width=width, height=height, gi_cache="hash",
-            traversal_backend="pallas",
-            spatial_hash=SpatialHashSettings(capacity=capacity),
-            surfels=SurfelSettings(pool_size=pool))
-    else:
-        settings = RenderSettings(width=width, height=height,
-                                  gi_cache="dense", traversal_backend="pallas")
-    if config == "stress":
-        vox, anim = procgen.stress_scene()
-    else:
-        vox = load_vox_scene(procgen.castle_scene_bytes())
-        anim = procgen.add_teapot(vox)
-    scene = build_device_scene(vox, device)
-    cam = cameralib.camera_settings(
-        cameralib.look_at(EYES[config], (0.0, 0.0, 0.0)), settings.camera.fov,
-        settings.camera.near, settings.camera.far, width, height, device)
-    return dict(settings=settings, scene=scene, anim=anim, cam=cam,
-                base_o2w=scene.obj_to_world.cpu().numpy(),
-                state=make_frame_state(settings, scene, device),
-                sky=bake_sky(settings.sunlight, device),
-                bn=load_blue_noise(device))
-
-
-def _render(ctx, f, state):
-    """Frame ``f`` (animated teapot) from ``state``: (output, new state)."""
-    from dust_tpu_torch.vox import procgen
-    from dust_tpu_torch.render.pipeline import render_frame
-
-    scene = ctx["scene"].with_transforms(
-        procgen.teapot_motion(ctx["base_o2w"], ctx["anim"], f))
-    out, _aux, state = render_frame(
-        scene, state, ctx["cam"], ctx["sky"], ctx["bn"].unitvec3_cosine,
-        ctx["bn"].scalar, ctx["settings"], return_aux=False)
-    return out, state
+    out, aux, state = bench.render(ctx, state, f, return_aux=return_aux)
+    return (out, aux, state) if return_aux else (out, state)
 
 
 def _frames(ctx, count, first=0):
@@ -510,6 +524,233 @@ def _hash_phase(hdda, dev, card, reset_counts, rmse):
     return hash_launches, pool_held
 
 
+def _config_phase(hdda, dev, card, reset_counts, label, config, width,
+                  height, per_frame, frames=FRAMES, **changes):
+    """``frames`` frames of a config (with ``changes`` to its settings) on
+    the card, from a fresh state, through the bench module: the launch
+    counts of those frames checked against ``per_frame``, a finite
+    non-black image, ms/frame and Mrays/s. Returns (ctx, launches per
+    mode)."""
+    ctx = _setup(dev, width, height, config, **changes)
+    reset_counts()
+    out, times = _timed_frames(ctx, frames, first=0)
+    _check_launches(hdda.LAUNCHES, per_frame, frames, f"{label} hdda_scene")
+    launches = dict(hdda.LAUNCHES)
+    _report_frame(label, ctx, out, times, card)
+    return ctx, launches
+
+
+def _card_vs_cpu(dev, rmse, label, **changes):
+    """A 256x144 gi frame with ``changes`` to its settings on the card and
+    on the CPU (plain versions), 2 frames: RMSE < 0.01."""
+    import torch
+
+    imgs = [_frames(_setup(d, 256, 144, **changes), 2)
+            for d in (dev, torch.device("cpu"))]
+    err = rmse(imgs[0], imgs[1])
+    print(f"256x144 {label}, 2 frames: card vs CPU plain RMSE {err:.5f}")
+    if not err < 0.01:
+        raise SystemExit(f"card and CPU frames differ ({label}): RMSE "
+                         f"{err:.5f}")
+
+
+def _scene_on(scene, device):
+    """The scene's tensors moved to ``device``."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(scene, **{
+        f.name: getattr(scene, f.name).to(device)
+        for f in dataclasses.fields(scene)
+        if isinstance(getattr(scene, f.name), torch.Tensor)})
+
+
+def _eager_phase(hdda, dev, card, reset_counts, rmse):
+    """Phase 15: the gi frame on the eager backend (traversal_backend=
+    "jnp", torch ops, no kernel). Returns {"ms": ms/frame, "size": (w, h),
+    "sync_ms": {interval: ms}}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from dust_tpu_torch.ops import traverse
+
+    w, h = WIDTH, HEIGHT
+    eager = _setup(dev, w, h, tile=w * h, traversal_backend="jnp")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _frames(eager, 1, first=0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    print(f"eager gi frame 0 at {w}x{h}: {first_s:.2f} s")
+    if first_s > EAGER_MAX_S:
+        w, h = 960, 540
+        print(f"eager backend: a {WIDTH}x{HEIGHT} frame took {first_s:.1f} s "
+              f"(over {EAGER_MAX_S:.0f} s), so the eager phase is cut to "
+              f"{w}x{h}")
+        eager = _setup(dev, w, h, tile=w * h, traversal_backend="jnp")
+        _frames(eager, 1, first=0)
+    # The lane-retirement interval, one frame each from the same state.
+    sync_ms = {}
+    chosen = traverse.SYNC_EVERY
+    try:
+        for k in SYNC_CHOICES:
+            traverse.SYNC_EVERY = k
+            state = eager["state"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _render(eager, 1, state)
+            torch.cuda.synchronize()
+            sync_ms.setdefault(k, []).append(1e3 * (time.perf_counter() - t0))
+    finally:
+        traverse.SYNC_EVERY = chosen
+    print(f"eager gi {w}x{h}, ms of one frame (from one state) by the "
+          f"iterations between host syncs, in the order run "
+          f"{list(SYNC_CHOICES)}: "
+          + ", ".join(f"{k}: {'/'.join(f'{t:.1f}' for t in v)}"
+                      for k, v in sync_ms.items())
+          + f"; in use: {chosen} [{card}]")
+    reset_counts()
+    out, times = _timed_frames(eager, FRAMES, first=1)
+    _check_launches(hdda.LAUNCHES, NO_LAUNCHES, FRAMES, "eager hdda_scene")
+    _report_frame(f"gi, eager backend", eager, out, times, card)
+    steady = times[1:]
+    ms = 1e3 * sum(steady) / len(steady)
+
+    # Against the kernel's backend: one frame from one state.
+    f = 1 + FRAMES
+    pallas = dict(eager, settings=dataclasses.replace(
+        eager["settings"], traversal_backend="pallas"))
+    img_e, aux_e, _ = _render(eager, f, eager["state"], return_aux=True)
+    img_p, aux_p, _ = _render(pallas, f, eager["state"], return_aux=True)
+    err = rmse(img_e, img_p)
+    hits = float((torch.isfinite(aux_e["depth"])
+                  == torch.isfinite(aux_p["depth"])).float().mean())
+    print(f"eager vs kernel backend, frame {f} at {w}x{h}: RMSE {err:.5f}, "
+          f"hit masks agree on {hits:.4%}")
+    if not (err < 0.01 and hits >= 0.995):
+        raise SystemExit(f"eager and kernel backends differ: RMSE {err:.5f}, "
+                         f"hit masks {hits:.4%}")
+
+    # The eager traversal on the card against the same on the CPU.
+    first = {}
+    _recorded_frame(eager, f + 1, traverse, "trace_scene_tiled",
+                    lambda a, kw: first.setdefault(kw["mode"], a))
+    rng = np.random.default_rng(0)
+    for mode, (scene, o, d, tn, tx) in sorted(first.items()):
+        scene_cpu = _scene_on(scene, "cpu")
+        n = o.shape[0]
+        tn, tx = (torch.broadcast_to(torch.as_tensor(
+            t, dtype=torch.float32, device=o.device), (n,)) for t in (tn, tx))
+        live = torch.nonzero(tx >= tn).flatten().cpu().numpy()
+        idx = np.sort(rng.permutation(live)[:SUBSAMPLE])
+        pick = torch.as_tensor(idx, device=o.device)
+        rays = [x[pick].contiguous() for x in (o, d, tn, tx)]
+        card_res = traverse.trace_scene(scene, *rays, mode=mode)
+        cpu_res = traverse.trace_scene(scene_cpu, *(x.cpu() for x in rays),
+                                       mode=mode)
+        differ = torch.zeros(len(idx), dtype=torch.bool)
+        for a, b in zip(card_res[1:], cpu_res[1:]):
+            differ |= a.cpu() != b
+        fin = torch.isfinite(cpu_res.t)
+        dt = float((card_res.t.cpu()[fin] - cpu_res.t[fin]).abs().max()) \
+            if bool(fin.any()) else 0.0
+        print(f"eager {mode} on {len(idx)} rays, card vs CPU: "
+              f"{int(differ.sum())} rays with another (inst, row, bit), "
+              f"{int(fin.sum())} hits, max |dt| {dt:.3g}")
+        if int(differ.sum()):
+            raise SystemExit(f"eager {mode}: card and CPU traversals differ "
+                             f"on {int(differ.sum())} rays")
+    return dict(ms=ms, size=(w, h), sync_ms=sync_ms)
+
+
+def _gates(dev, here, card):
+    """Phase 16: tests/test_quality.py's converged-ground-truth gates on
+    the card, on the HDDA kernel's backend."""
+    import numpy as np
+    import torch
+    from dust_tpu_torch.config import (DenoiserSettings, RenderSettings,
+                                       SpatialHashSettings, SurfelSettings)
+    from dust_tpu_torch.ops import camera as cameralib
+    from dust_tpu_torch.ops import tonemap as tonemaplib
+    from dust_tpu_torch.ops.noise import load_blue_noise
+    from dust_tpu_torch.ops.sky import bake_sky
+    from dust_tpu_torch.render.pipeline import make_frame_state, render_frame
+    from dust_tpu_torch.render.scene import build_device_scene
+    from dust_tpu_torch.vox import procgen
+    from dust_tpu_torch.vox.loader import load_vox_scene
+
+    gt = np.load(os.path.join(here, GT_PATH))
+    W, H = int(gt["width"]), int(gt["height"])
+    vox = load_vox_scene(procgen.castle_scene_bytes())
+    procgen.add_teapot(vox)
+    scene = build_device_scene(vox, dev)
+    bn = load_blue_noise(dev)
+    exposure = torch.tensor(float(gt["exposure"]), device=dev)
+
+    def run(frames, avg_last=0, **overrides):
+        """The final frame tonemapped at the ground truth's exposure, and
+        with ``avg_last`` the mean of the last frames too."""
+        kw = dict(width=W, height=H, gi_cache="dense",
+                  traversal_backend="pallas",
+                  spatial_hash=SpatialHashSettings(capacity=GT_CAPACITY),
+                  surfels=SurfelSettings(pool_size=GT_POOL))
+        kw.update(overrides)
+        s = RenderSettings(**kw)
+        cam = cameralib.camera_settings(
+            cameralib.look_at(GT_EYE, GT_TARGET), s.camera.fov,
+            s.camera.near, s.camera.far, W, H, dev)
+        sky = bake_sky(s.sunlight, dev)
+        state = make_frame_state(s, scene, dev)
+        acc, cnt = 0.0, 0
+        for f in range(frames):
+            _out, aux, state = render_frame(scene, state, cam, sky,
+                                            bn.unitvec3_cosine, bn.scalar, s)
+            img = tonemaplib.tonemap(aux["denoised"], aux["albedo"], exposure,
+                                     "srgb").cpu().numpy()
+            if avg_last and f >= frames - avg_last:
+                acc, cnt = acc + img, cnt + 1
+        return (img, acc / cnt) if avg_last else img
+
+    def err(a, b):
+        return float(np.sqrt(np.mean((np.asarray(a, np.float64)
+                                      - np.asarray(b, np.float64)) ** 2)))
+
+    t0 = time.perf_counter()
+    dense = run(GT_CONV_FRAMES, GT_CONV_AVG)
+    split = run(GT_CONV_FRAMES, GT_CONV_AVG, denoiser=DenoiserSettings(
+        half_res_indirect=False, split_direct=True))
+    lumped = run(GT_FRAMES, denoiser=DenoiserSettings(half_res_indirect=False))
+    hashed = run(GT_FRAMES, gi_cache="hash")
+    r_half, r_split = err(dense[0], gt["output"]), err(split[0], gt["output"])
+    gates = [
+        (f"denoised ({GT_CONV_FRAMES} frames)", r_half, RMSE_DENOISED),
+        ("half-res extra over full-res split", r_half - r_split,
+         HALF_RES_EXTRA),
+        (f"converged half-res bias (last {GT_CONV_AVG} of {GT_CONV_FRAMES} "
+         "frames averaged)", err(dense[1], split[1]), RMSE_HALF_CONVERGED),
+        (f"full-res lumped ({GT_FRAMES} frames)", err(lumped, gt["output"]),
+         RMSE_DENOISED),
+        ("dense", r_half, RMSE_DENSE),
+        (f"hash ({GT_FRAMES} frames)", err(hashed, gt["output"]), RMSE_HASH),
+    ]
+    print(f"converged-ground-truth gates at {W}x{H} (tests/test_quality.py's "
+          f"bounds; full-res split {r_split:.4f}) in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]:")
+    failed = []
+    for name, value, bound in gates:
+        ok = value < bound
+        print(f"  {name}: RMSE {value:.4f} (bound {bound}) "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise SystemExit(f"ground-truth gates failed: {failed}")
+    return {name: value for name, value, _ in gates}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -526,7 +767,9 @@ def main() -> int:
     sys.path.insert(0, here)
     from dust_tpu_torch.ops import hdda
 
-    card = _card()
+    from dust_tpu_torch import bench
+
+    card = bench.card_name()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
@@ -655,12 +898,69 @@ def main() -> int:
     hash_launches, pool_held = _hash_phase(hdda, dev, card, reset_counts,
                                            rmse)
 
+    # ---- 11. primary-shadow: the frame without GI ----------------------
+    from dust_tpu_torch.config import DenoiserSettings
+
+    by_path = {}
+    _ctx, by_path["primary-shadow"] = _config_phase(
+        hdda, dev, card, reset_counts, "primary-shadow", "primary-shadow",
+        WIDTH, HEIGHT, NO_GI_LAUNCHES)
+    del _ctx
+
+    # ---- 12. gi-4k: the scene kernel held and timed at 4K --------------
+    k4 = _setup(dev, WIDTH_4K, HEIGHT_4K, "gi-4k")
+    held_4k = _hold_scene_kernel(hdda, k4, 0, "gi-4k hdda_scene", False)
+    reset_counts()
+    out, times = _timed_frames(k4, FRAMES, first=1)
+    _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, FRAMES, "gi-4k hdda_scene")
+    by_path["gi-4k"] = dict(hdda.LAUNCHES)
+    _report_frame("gi-4k", k4, out, times, card)
+    for mode in hdda.MODES:
+        h = held_4k[mode]
+        print(f"gi-4k hdda_scene<{mode}>: {h['ms']:.4f} ms per launch at "
+              f"{WIDTH_4K}x{HEIGHT_4K}; bound {h['bound_ms']:.4f} ms "
+              f"({h['bound_by']}); {100.0 * h['bound_ms'] / h['ms']:.2f}% of "
+              f"the bound [{card}]")
+    del k4, out
+
+    # ---- 13. flythrough: 4K, the camera moving every frame -------------
+    _ctx, by_path["flythrough"] = _config_phase(
+        hdda, dev, card, reset_counts, "flythrough", "flythrough", WIDTH_4K,
+        HEIGHT_4K, SCENE_LAUNCHES)
+    del _ctx
+
+    # ---- 14. precise sun shadows and the full-resolution denoise -------
+    variants = {
+        "precise-shadows": (PRECISE_LAUNCHES, dict(shadow_mode="precise")),
+        "full-res-split": (SCENE_LAUNCHES, dict(denoiser=DenoiserSettings(
+            half_res_indirect=False, split_direct=True))),
+        "full-res-lumped": (SCENE_LAUNCHES, dict(denoiser=DenoiserSettings(
+            half_res_indirect=False))),
+    }
+    for name, (per_frame, changes) in variants.items():
+        _ctx, by_path[name] = _config_phase(
+            hdda, dev, card, reset_counts, name, "gi", WIDTH, HEIGHT,
+            per_frame, frames=2, **changes)
+        del _ctx
+        _card_vs_cpu(dev, rmse, name, **changes)
+
+    # ---- 15. the eager backend -----------------------------------------
+    eager = _eager_phase(hdda, dev, card, reset_counts, rmse)
+
+    # ---- 16. the converged-ground-truth gates --------------------------
+    gates = _gates(dev, here, card)
+
     for k in kernels:
         if k["name"].startswith("hdda_scene<"):
             mode = k["name"][len("hdda_scene<"):-1]
             k["launches_by_path"] = {"gi": k["launches"],
                                      "stress": stress_launches[mode],
                                      "hash-reference": hash_launches[mode]}
+            k["launches_by_path"].update(
+                {path: counts[mode] for path, counts in by_path.items()})
+            h = held_4k[mode]
+            k["gi_4k"] = dict(max_abs_err=h["err"], ms=h["ms"],
+                              bound_ms=h["bound_ms"], bound_by=h["bound_by"])
         if k["name"] == "hdda_scene<rough>":
             k["hash_pool"] = {
                 w: dict(rays=HASH_POOL, active_rays=h["active_rays"],
@@ -668,6 +968,7 @@ def main() -> int:
                         plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
                         bound_by=h["bound_by"])
                 for w, h in pool_held.items()}
+    print(json.dumps({"eager_backend": eager, "gates": gates}))
     for mode in hdda.MODES:
         h = stress_held[mode]
         print(f"stress hdda_scene<{mode}>: {h['ms']:.3f} ms per launch at "

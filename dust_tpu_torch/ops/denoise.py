@@ -86,10 +86,14 @@ def make_denoiser_state(height: int, width: int, device) -> DenoiserState:
 
 
 def _project(view_proj, pos, width: int, height: int):
-    """World -> pixel coords under the (reverse-Z) view-proj."""
-    clip = [pos[..., 0] * view_proj[k, 0] + pos[..., 1] * view_proj[k, 1]
-            + pos[..., 2] * view_proj[k, 2] + view_proj[k, 3]
-            for k in range(4)]
+    """World -> pixel coords under the (reverse-Z) view-proj. The clip
+    coordinates round as the reference's ``einsum`` over [x, y, z, 1]
+    rounds them, summing its four products in pairs: a pixel centre at
+    the image edge reprojects onto the in-bounds limit, so the last bit
+    decides whether it keeps its history."""
+    x, y, z = pos.unbind(-1)
+    clip = [(x * view_proj[k, 0] + y * view_proj[k, 1])
+            + (z * view_proj[k, 2] + view_proj[k, 3]) for k in range(4)]
     w = clip[3]
     wd = torch.where(w.abs() < 1e-12, 1e-12, w)
     x = (clip[0] / wd * 0.5 + 0.5) * width

@@ -3,13 +3,14 @@
 Both of the reference's GI caches: the dense cache (one row per
 (instance, leaf, face) cell, every cell refreshed each frame; the
 headline frame) and the spatial hash (the renderer's default; a surfel
-pool refreshes it). Every trace goes through the HDDA traversal kernel;
-sun shadows are reference-mode and the indirect is denoised at half
-resolution. Per frame:
+pool refreshes it). Per frame:
 
 1. **primary** — precise trace from the camera; the G-buffer; misses
    write sky radiance straight to the output.
-2. **sun NEE** — one fused AO-threshold + rough shadow walk per hit.
+2. **sun NEE** — ``shadow_mode="reference"``: a precise walk to the AO
+   threshold, then block-granular (rough) hits past it; on the
+   ``pallas`` backend one fused ao_fg launch. ``"precise"``: one precise
+   walk to 10000.
 3. **AO** then **final gather** — one cosine ray per hit (blue noise),
    traced to the AO threshold, then continued rough; final-gather hits
    read the GI cache. The hash frame first probes the hash once per
@@ -22,16 +23,21 @@ resolution. Per frame:
    rotating slice of that many rows per frame. Hash: every valid pool
    surfel (or a rotating ``pool_refresh_budget`` slice) does the same
    and inserts at its own cell; hit cells not yet cached requeue.
-5. **post** — half-res temporal + à-trous denoise of the indirect,
-   joint-bilateral upsample, auto-exposure, ACES tonemap.
+5. **post** — temporal + à-trous denoise of the indirect at half
+   resolution with a joint-bilateral upsample, or at full resolution
+   (the indirect alone with ``split_direct``, else direct and indirect
+   together), then auto-exposure and ACES tonemap.
 
-Six traces per frame: precise, ao_fg, ao_threshold and three rough; each
-is one launch of the scene kernel, or with ``DUST_PALLAS_SCENE=loop``
-one launch of the single-instance kernel per instance
-(:mod:`dust_tpu_torch.ops.hdda`). Settings the port does not cover yet
-raise ``NotImplementedError`` naming their ROADMAP item. The slices of
-the working set and the pool are chosen on the host from the Python
-``frame_index``, so the frame branches on no tensor's value.
+With every secondary contribution off (and no debug view) steps 3-4 and
+the denoiser do not exist: the primary+shadow frame. Traces go through
+``traversal_backend``: ``"pallas"``, the HDDA kernel
+(:mod:`dust_tpu_torch.ops.hdda`; ``DUST_PALLAS_SCENE=loop`` takes its
+per-instance route), or ``"jnp"``, the eager torch wavefront
+(:mod:`dust_tpu_torch.ops.traverse`), which has no kernel. Non-palette
+``instance_materials`` raise ``NotImplementedError`` naming their
+ROADMAP item. The slices of the working set and the pool are chosen on
+the host from the Python ``frame_index``, so the frame branches on no
+tensor's value.
 """
 
 from __future__ import annotations
@@ -53,7 +59,8 @@ from dust_tpu_torch.ops import sky as skylib
 from dust_tpu_torch.ops import spatial_hash as sh
 from dust_tpu_torch.ops import tonemap as tonemaplib
 from dust_tpu_torch.ops.fp import fma
-from dust_tpu_torch.ops.hdda import trace_scene, trace_scene_ao_fg
+from dust_tpu_torch.ops import hdda
+from dust_tpu_torch.ops import traverse
 from dust_tpu_torch.render.materials import apply_materials
 from dust_tpu_torch.utils import color as colorlib
 from dust_tpu_torch.vox.geometry import unpack_r10g10b10a2
@@ -72,7 +79,7 @@ class FrameState:
     # Hash mode: the surfel pool, (P, 4) float32 rows [x, y, z, face id].
     # Dense mode has no pool: (0, 4).
     surfels: torch.Tensor
-    denoiser: denoiselib.DenoiserState  # half-res packed history
+    denoiser: denoiselib.DenoiserState  # packed history (half or full res)
     exposure_avg: torch.Tensor          # () float32
     frame_index: int
     prev_view_proj: torch.Tensor        # (4, 4) float32
@@ -83,24 +90,27 @@ class FrameState:
 
 def _check_settings(settings: RenderSettings):
     """The settings this port covers; the rest name their ROADMAP item."""
-    unported = []
-    if settings.traversal_backend != "pallas":
-        unported.append("traversal_backend='jnp' (Queue 1, 'Eager "
-                        "traversal backend')")
-    if not (settings.denoiser.half_res_indirect and settings.height % 2 == 0
-            and settings.width % 2 == 0):
-        unported.append("full-resolution denoise (Queue 1, 'The other frame "
-                        "branches')")
-    if settings.shadow_mode != "reference":
-        unported.append("shadow_mode='precise' (Queue 1, 'The other frame "
-                        "branches')")
-    if not (settings.contribution_secondary_spatial_hash
-            or settings.contribution_secondary_skylight):
-        unported.append("the primary+shadow frame without GI (Queue 1, 'The "
-                        "other frame branches')")
-    if unported:
-        raise NotImplementedError("not ported yet: " + "; ".join(unported)
-                                  + " (see ROADMAP.md)")
+    if settings.traversal_backend not in ("pallas", "jnp"):
+        raise ValueError(f"traversal_backend={settings.traversal_backend!r}")
+    if settings.shadow_mode not in ("reference", "precise"):
+        raise ValueError(f"shadow_mode={settings.shadow_mode!r}")
+    if settings.instance_materials:
+        raise NotImplementedError(
+            "not ported yet: non-palette instance_materials (Queue 1, "
+            "'Materials registry'; see ROADMAP.md)")
+
+
+def _half_res(settings: RenderSettings) -> bool:
+    """Whether the indirect is denoised at half resolution."""
+    return (settings.denoiser.half_res_indirect and settings.height % 2 == 0
+            and settings.width % 2 == 0)
+
+
+def _gi_enabled(settings: RenderSettings) -> bool:
+    """Whether the frame has its AO, final-gather and surfel passes."""
+    return (settings.contribution_secondary_spatial_hash
+            or settings.contribution_secondary_skylight
+            or settings.debug_visualize_spatial_hash)
 
 
 def make_frame_state(settings: RenderSettings, scene, device) -> FrameState:
@@ -118,11 +128,12 @@ def make_frame_state(settings: RenderSettings, scene, device) -> FrameState:
         surfels[:, 3] = float(INVALID_SURFEL)
         if settings.spatial_hash.ws_refresh_slices > 1:
             gi_ws = gilib.make_dense_gi_cache(scene)
+    div = 2 if _half_res(settings) else 1
     return FrameState(
         gi=gi,
         surfels=surfels,
-        denoiser=denoiselib.make_denoiser_state(settings.height // 2,
-                                                settings.width // 2, device),
+        denoiser=denoiselib.make_denoiser_state(settings.height // div,
+                                                settings.width // div, device),
         exposure_avg=torch.tensor(1.0, device=device),
         frame_index=0,
         prev_view_proj=torch.eye(4, device=device),
@@ -207,12 +218,13 @@ def _cell_enumeration(scene):
     return centers, vleafs
 
 
-def _tiling(H: int, W: int):
-    """Pixel order of the ray arrays: 8×128-pixel tiles when the image
-    divides into them (a warp then walks neighbouring pixels), raster
-    order otherwise. Returns (to_tiles, from_tiles)."""
+def _tiling(H: int, W: int, tiled: bool):
+    """Pixel order of the ray arrays: with ``tiled`` (the HDDA kernel's
+    backend), 8×128-pixel tiles when the image divides into them (a warp
+    then walks neighbouring pixels), raster order otherwise. Returns
+    (to_tiles, from_tiles)."""
     n = H * W
-    tiled = H % 8 == 0 and W % 128 == 0
+    tiled = tiled and H % 8 == 0 and W % 128 == 0
 
     def to_tiles(img):
         if not tiled:
@@ -265,11 +277,12 @@ def _working_set(scene, state: FrameState, settings: RenderSettings,
 def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
                  sky_state: skylib.SkyModelState, bn_cosine: torch.Tensor,
                  bn_scalar: torch.Tensor, settings: RenderSettings,
-                 return_aux: bool = True):
+                 tile: int = 16384, return_aux: bool = True):
     """Render one frame. Returns (output_srgb (H, W, 3), aux dict, new
     state). ``bn_cosine``: the (64, 128, 128, 3) cosine blue-noise table;
     ``bn_scalar``: the (64, 128, 128, 1) scalar table (the hash frame's
-    enqueue and requeue draws)."""
+    enqueue and requeue draws). ``tile``: rays per walk of the ``"jnp"``
+    backend (bounds its memory; no result depends on it)."""
     _check_settings(settings)
     H, W = settings.height, settings.width
     n = H * W
@@ -277,17 +290,25 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
     frame_index = state.frame_index
     rand = _pcg_scalar(frame_index)
     layer = frame_index % bn_cosine.shape[0]
-    to_tiles, from_tiles = _tiling(H, W)
+    pallas = settings.traversal_backend == "pallas"
+    to_tiles, from_tiles = _tiling(H, W, pallas)
     dense = settings.gi_cache == "dense"
     cell_size = settings.spatial_hash.cell_size
+    gi = _gi_enabled(settings)
 
     def fill(mask, yes, no):
         return torch.where(mask, yes, no).float()
 
+    def trace(o, d, t_min, t_max, mode):
+        if pallas:
+            return hdda.trace_scene(scene, o, d, t_min, t_max, mode)
+        return traverse.trace_scene_tiled(scene, o, d, t_min, t_max,
+                                          mode=mode, tile=tile)
+
     # -------------------------------------------------- 1. primary
     dirs = to_tiles(cameralib.camera_ray_dirs(cam, W, H))
     origins = cam.position.expand(n, 3).contiguous()
-    primary = trace_scene(scene, origins, dirs, cam.near, cam.far, "precise")
+    primary = trace(origins, dirs, cam.near, cam.far, "precise")
     g = shade.resolve_hits(scene, primary, origins, dirs)
     g, mat_emissive = apply_materials(g, settings.instance_materials)
     hit = g["hit"]
@@ -307,187 +328,238 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
         ndl = (normal * sun_dir).sum(dim=-1)
         facing = (ndl > 0.0) & hit
         sthr = settings.ambient_occlusion_threshold
-        s_ao, s_fg = trace_scene_ao_fg(
-            scene, hit_loc, sun_dir.expand(n, 3), 0.1,
-            fill(facing, sthr, -1.0), fill(facing, 10000.0, -1.0))
-        unoccluded = facing & ~(s_ao.hit | s_fg.hit)
+        sun_rays = sun_dir.expand(n, 3)
+        s_tmax = fill(facing, 10000.0, -1.0)
+        if settings.shadow_mode == "precise":
+            occluded = trace(hit_loc, sun_rays, 0.1, s_tmax, "precise").hit
+        elif pallas:
+            s_ao, s_fg = hdda.trace_scene_ao_fg(
+                scene, hit_loc, sun_rays, 0.1, fill(facing, sthr, -1.0),
+                s_tmax)
+            occluded = s_ao.hit | s_fg.hit
+        else:
+            occluded = (trace(hit_loc, sun_rays, 0.1,
+                              fill(facing, sthr, -1.0), "ao_threshold").hit
+                        | trace(hit_loc, sun_rays, sthr, s_tmax, "rough").hit)
+        unoccluded = facing & ~occluded
         direct = direct + torch.where(
             unoccluded[:, None], strength * torch.clamp(ndl, min=0.0)[:, None],
             0.0)
 
-    # -------------------------------------------------- 3. AO + final gather
-    cos_sample = to_tiles(noiselib.bn_fetch(bn_cosine, layer, (7, 183), rand,
-                                            H, W)) * 2.0 - 1.0
-    gi_dir = pk.rotate_vector_by_normal(normal, cos_sample)
-    gi_dir = torch.where(hit[:, None], gi_dir, gi_dir.new_tensor([0.0, 1.0, 0.0]))
-    thr = settings.ambient_occlusion_threshold
-    ao = trace_scene(scene, hit_loc, gi_dir, 0.1, fill(hit, thr, -1.0),
-                     "ao_threshold")
-    ao_hit = ao.hit
-    fg_active = hit & ~ao_hit
-    fg = trace_scene(scene, hit_loc, gi_dir, thr,
-                     torch.where(fg_active, cam.far, -1.0), "rough")
-    fg_hit = fg_active & fg.hit
-
-    if dense:
-        gi_reads, new_gi_ws = state.gi, state.gi_ws
+    if not gi:
+        # The primary+shadow frame: no AO, final-gather or surfel pass,
+        # and (below) no denoiser; the cache and pool carry unchanged.
+        hitdist = torch.where(hit, 0.0, 100000.0)
+        radiance_img = torch.where(hit[:, None], direct, sky_out)
+        surfels, new_gi, new_gi_ws = state.surfels, state.gi, state.gi_ws
     else:
-        gi_reads, new_gi_ws = _working_set(scene, state, settings,
-                                           frame_index)
-    face = shade.entry_face(scene, fg, hit_loc, gi_dir)
-    _found, cached, cnt, alb_u32 = gilib.dense_get(
-        gi_reads, gilib.dense_index(scene, fg.inst, fg.row, face), fg_hit)
-    albedo_lin = colorlib.srgb_eotf(unpack_r10g10b10a2(alb_u32)[:, :3])
-    indirect = colorlib.srgb_to_acescg(
-        colorlib.acescg_to_srgb(cached) * albedo_lin)
-    illum = torch.zeros((n, 3), device=dev)
-    if settings.contribution_secondary_spatial_hash:
-        illum = illum + torch.where(fg_hit[:, None], indirect, 0.0)
-    if settings.contribution_secondary_skylight:
-        illum = illum + torch.where((fg_active & ~fg.hit)[:, None],
-                                    skylib.sky_radiance(sky_state, gi_dir), 0.0)
+        # ---------------------------------------------- 3. AO + final gather
+        cos_sample = to_tiles(noiselib.bn_fetch(
+            bn_cosine, layer, (7, 183), rand, H, W)) * 2.0 - 1.0
+        gi_dir = pk.rotate_vector_by_normal(normal, cos_sample)
+        gi_dir = torch.where(hit[:, None], gi_dir,
+                             gi_dir.new_tensor([0.0, 1.0, 0.0]))
+        thr = settings.ambient_occlusion_threshold
+        ao = trace(hit_loc, gi_dir, 0.1, fill(hit, thr, -1.0), "ao_threshold")
+        ao_hit = ao.hit
+        fg_active = hit & ~ao_hit
+        fg = trace(hit_loc, gi_dir, thr,
+                   torch.where(fg_active, cam.far, -1.0), "rough")
+        fg_hit = fg_active & fg.hit
 
-    surfels = state.surfels
-    if not dense:
-        # Stochastic enqueue of final-gather hit cells: pool slot = ray
-        # index % pool size, the lowest index wins.
-        p_sched = 1.0 / (cnt + 2.0)
-        noise0 = to_tiles(noiselib.bn_fetch(bn_scalar, layer, (34, 21), rand,
-                                            H, W))[:, 0]
-        enqueue = fg_hit & (noise0 > p_sched)
-        center_fg = shade.entry_leaf_center(scene, fg, hit_loc, gi_dir)
-        surfels = _pool_enqueue_mod(
-            surfels, enqueue, torch.cat([center_fg, face.float()[:, None]],
-                                        dim=-1))
-    if settings.debug_visualize_spatial_hash:
-        # Show the cache: the primary hit cell's cached radiance.
-        dbg = shade.leaf_attributes(scene, primary, origins, dirs, cell_size)
         if dense:
-            _, dbg_rad, _, _ = gilib.dense_get(
-                gi_reads, gilib.dense_index(scene, primary.inst, primary.row,
-                                            dbg["face"]), hit)
+            gi_reads, new_gi_ws = state.gi, state.gi_ws
         else:
-            _, dbg_rad, _ = sh.hash_get(state.gi, dbg["qpos"], dbg["face"])
-        illum = torch.where(hit[:, None], dbg_rad, illum)
+            gi_reads, new_gi_ws = _working_set(scene, state, settings,
+                                               frame_index)
+        face = shade.entry_face(scene, fg, hit_loc, gi_dir)
+        _found, cached, cnt, alb_u32 = gilib.dense_get(
+            gi_reads, gilib.dense_index(scene, fg.inst, fg.row, face),
+            fg_hit)
+        albedo_lin = colorlib.srgb_eotf(unpack_r10g10b10a2(alb_u32)[:, :3])
+        indirect = colorlib.srgb_to_acescg(
+            colorlib.acescg_to_srgb(cached) * albedo_lin)
+        illum = torch.zeros((n, 3), device=dev)
+        if settings.contribution_secondary_spatial_hash:
+            illum = illum + torch.where(fg_hit[:, None], indirect, 0.0)
+        if settings.contribution_secondary_skylight:
+            illum = illum + torch.where(
+                (fg_active & ~fg.hit)[:, None],
+                skylib.sky_radiance(sky_state, gi_dir), 0.0)
 
-    hitdist = torch.where(ao_hit, ao.t, 0.0)
-    hitdist = torch.where(fg_hit, fg.t, hitdist)
-    radiance_img = torch.where(hit[:, None], direct + illum, sky_out)
-    hitdist = torch.where(hit, hitdist, 100000.0)
+        surfels = state.surfels
+        if not dense:
+            # Stochastic enqueue of final-gather hit cells: pool slot =
+            # ray index % pool size, the lowest index wins.
+            p_sched = 1.0 / (cnt + 2.0)
+            noise0 = to_tiles(noiselib.bn_fetch(
+                bn_scalar, layer, (34, 21), rand, H, W))[:, 0]
+            enqueue = fg_hit & (noise0 > p_sched)
+            center_fg = shade.entry_leaf_center(scene, fg, hit_loc, gi_dir)
+            surfels = _pool_enqueue_mod(
+                surfels, enqueue,
+                torch.cat([center_fg, face.float()[:, None]], dim=-1))
+        if settings.debug_visualize_spatial_hash:
+            # Show the cache: the primary hit cell's cached radiance.
+            dbg = shade.leaf_attributes(scene, primary, origins, dirs,
+                                        cell_size)
+            if dense:
+                _, dbg_rad, _, _ = gilib.dense_get(
+                    gi_reads, gilib.dense_index(scene, primary.inst,
+                                                primary.row, dbg["face"]), hit)
+            else:
+                _, dbg_rad, _ = sh.hash_get(state.gi, dbg["qpos"],
+                                            dbg["face"])
+            illum = torch.where(hit[:, None], dbg_rad, illum)
 
-    # -------------------------------------------------- 4. surfel refresh
-    slice_start = None
-    if dense:
-        # The pool is the cell list, face-major: row = face * cells + cell.
-        centers_w, vleaf = _cell_enumeration(scene)
-        C = centers_w.shape[0]
-        surfel_pos = centers_w.repeat(6, 1)
-        surfel_dir = torch.arange(6, dtype=torch.int32,
-                                  device=dev)[:, None].expand(6, C).reshape(-1)
-        s_valid = vleaf.repeat(6)
-        # Refresh budget: big scenes patch a rotating contiguous slice of
-        # ``budget`` rows per frame.
-        rows_total = surfel_pos.shape[0]
-        budget = settings.surfels.dense_refresh_budget
-        if budget and rows_total > budget:
-            nslices = -(-rows_total // budget)
-            slice_start = min((frame_index % nslices) * budget,
-                              rows_total - budget)
-            window = slice(slice_start, slice_start + budget)
-            surfel_pos = surfel_pos[window]
-            surfel_dir = surfel_dir[window]
-            s_valid = s_valid[window]
-    else:
-        # The pool, or under a refresh budget its rotating slice.
-        pool_rows = surfels
-        pbudget = settings.surfels.pool_refresh_budget
-        if pbudget and surfels.shape[0] > pbudget:
-            nslices = -(-surfels.shape[0] // pbudget)
-            slice_start = min((frame_index % nslices) * pbudget,
-                              surfels.shape[0] - pbudget)
-            pool_rows = surfels[slice_start:slice_start + pbudget]
-        surfel_pos = pool_rows[:, :3]
-        surfel_dir = pool_rows[:, 3].int()
-        s_valid = surfel_dir < 6
-        surfel_dir = torch.clamp(surfel_dir, max=5)
-    p = surfel_pos.shape[0]
-    s_normal = pk.face_id_to_normal(surfel_dir)
-    s_origin = fma(torch.full_like(s_normal, 2.01), s_normal, surfel_pos)
-    s_cos = noiselib.bn_fetch_pool(bn_cosine, layer, (16, 47), rand,
-                                   p) * 2.0 - 1.0
-    s_dir = pk.rotate_vector_by_normal(s_normal, s_cos)
+        hitdist = torch.where(ao_hit, ao.t, 0.0)
+        hitdist = torch.where(fg_hit, fg.t, hitdist)
+        radiance_img = torch.where(hit[:, None], direct + illum, sky_out)
+        hitdist = torch.where(hit, hitdist, 100000.0)
 
-    s_payload = torch.zeros((p, 3), device=dev)
-    if settings.contribution_secondary_sunlight:
-        s_ndl = (s_normal * sun_dir).sum(dim=-1)
-        s_facing = (s_ndl > 0.0) & s_valid
-        s_shadow = trace_scene(scene, s_origin, sun_dir.expand(p, 3), 0.1,
-                               fill(s_facing, 10000.0, -1.0), "rough")
-        s_unocc = s_facing & ~s_shadow.hit
-        s_payload = s_payload + torch.where(
-            s_unocc[:, None], strength * torch.clamp(s_ndl, min=0.0)[:, None],
-            0.0)
-
-    s_res = trace_scene(scene, s_origin, s_dir, 0.1,
-                        fill(s_valid, 10000.0, -1.0), "rough")
-    s_hit = s_valid & s_res.hit
-    s_face = shade.entry_face(scene, s_res, s_origin, s_dir)
-    s_found, s_cached, s_cnt, s_alb_u32 = gilib.dense_get(
-        gi_reads, gilib.dense_index(scene, s_res.inst, s_res.row, s_face),
-        s_hit)
-    s_albedo_lin = colorlib.srgb_eotf(unpack_r10g10b10a2(s_alb_u32)[:, :3])
-    s_bounce = colorlib.srgb_to_acescg(
-        colorlib.acescg_to_srgb(s_cached) * s_albedo_lin)
-    s_sky = skylib.sky_radiance(
-        sky_state, s_dir / torch.clamp(pk.norm3(s_dir, keepdim=True), min=1e-8))
-    # Insert at the surfel's own cell: the bounce on a cached hit, the
-    # sky on a miss.
-    insert_val = torch.where(s_hit[:, None], s_bounce + s_payload,
-                             s_sky + s_payload)
-    insert_ok = s_valid & (~s_hit | s_found)
-    if dense and slice_start is None:
-        new_gi = gilib.dense_update(state.gi, insert_val, insert_ok)
-    elif dense:
-        new_gi = gilib.dense_update_slice(state.gi, slice_start, insert_val,
-                                          insert_ok)
-    else:
-        new_gi = sh.hash_insert(
-            state.gi, *sh.spatial_hash_key(surfel_pos, surfel_dir, cell_size),
-            insert_val, frame_index, valid=insert_ok,
-            max_updates=settings.spatial_hash.insert_cap or None)
-        # A hit cell not in the cache requeues into the surfel's own slot.
-        s_noise = noiselib.bn_fetch_pool(bn_scalar, layer, (114, 40), rand,
-                                         p)[:, 0]
-        s_requeue = s_hit & ~s_found & (s_noise > 1.0 / (s_cnt + 2.0))
-        s_center = shade.entry_leaf_center(scene, s_res, s_origin, s_dir)
-        requeued = torch.where(
-            s_requeue[:, None],
-            torch.cat([s_center, s_face.float()[:, None]], dim=-1), pool_rows)
-        if slice_start is None:
-            surfels = requeued
+        # ---------------------------------------------- 4. surfel refresh
+        slice_start = None
+        if dense:
+            # The pool is the cell list, face-major: row = face * cells +
+            # cell.
+            centers_w, vleaf = _cell_enumeration(scene)
+            C = centers_w.shape[0]
+            surfel_pos = centers_w.repeat(6, 1)
+            surfel_dir = torch.arange(6, dtype=torch.int32, device=dev)[
+                :, None].expand(6, C).reshape(-1)
+            s_valid = vleaf.repeat(6)
+            # Refresh budget: big scenes patch a rotating contiguous slice
+            # of ``budget`` rows per frame.
+            rows_total = surfel_pos.shape[0]
+            budget = settings.surfels.dense_refresh_budget
+            if budget and rows_total > budget:
+                nslices = -(-rows_total // budget)
+                slice_start = min((frame_index % nslices) * budget,
+                                  rows_total - budget)
+                window = slice(slice_start, slice_start + budget)
+                surfel_pos = surfel_pos[window]
+                surfel_dir = surfel_dir[window]
+                s_valid = s_valid[window]
         else:
-            surfels = surfels.clone()
-            surfels[slice_start:slice_start + p] = requeued
+            # The pool, or under a refresh budget its rotating slice.
+            pool_rows = surfels
+            pbudget = settings.surfels.pool_refresh_budget
+            if pbudget and surfels.shape[0] > pbudget:
+                nslices = -(-surfels.shape[0] // pbudget)
+                slice_start = min((frame_index % nslices) * pbudget,
+                                  surfels.shape[0] - pbudget)
+                pool_rows = surfels[slice_start:slice_start + pbudget]
+            surfel_pos = pool_rows[:, :3]
+            surfel_dir = pool_rows[:, 3].int()
+            s_valid = surfel_dir < 6
+            surfel_dir = torch.clamp(surfel_dir, max=5)
+        p = surfel_pos.shape[0]
+        s_normal = pk.face_id_to_normal(surfel_dir)
+        s_origin = fma(torch.full_like(s_normal, 2.01), s_normal, surfel_pos)
+        s_cos = noiselib.bn_fetch_pool(bn_cosine, layer, (16, 47), rand,
+                                       p) * 2.0 - 1.0
+        s_dir = pk.rotate_vector_by_normal(s_normal, s_cos)
 
-    # -------------------------------------------------- 5. post (half res)
+        s_payload = torch.zeros((p, 3), device=dev)
+        if settings.contribution_secondary_sunlight:
+            s_ndl = (s_normal * sun_dir).sum(dim=-1)
+            s_facing = (s_ndl > 0.0) & s_valid
+            s_shadow = trace(s_origin, sun_dir.expand(p, 3), 0.1,
+                             fill(s_facing, 10000.0, -1.0), "rough")
+            s_unocc = s_facing & ~s_shadow.hit
+            s_payload = s_payload + torch.where(
+                s_unocc[:, None],
+                strength * torch.clamp(s_ndl, min=0.0)[:, None], 0.0)
+
+        s_res = trace(s_origin, s_dir, 0.1, fill(s_valid, 10000.0, -1.0),
+                      "rough")
+        s_hit = s_valid & s_res.hit
+        s_face = shade.entry_face(scene, s_res, s_origin, s_dir)
+        s_found, s_cached, s_cnt, s_alb_u32 = gilib.dense_get(
+            gi_reads, gilib.dense_index(scene, s_res.inst, s_res.row,
+                                        s_face), s_hit)
+        s_albedo_lin = colorlib.srgb_eotf(
+            unpack_r10g10b10a2(s_alb_u32)[:, :3])
+        s_bounce = colorlib.srgb_to_acescg(
+            colorlib.acescg_to_srgb(s_cached) * s_albedo_lin)
+        s_sky = skylib.sky_radiance(sky_state, s_dir / torch.clamp(
+            pk.norm3(s_dir, keepdim=True), min=1e-8))
+        # Insert at the surfel's own cell: the bounce on a cached hit, the
+        # sky on a miss.
+        insert_val = torch.where(s_hit[:, None], s_bounce + s_payload,
+                                 s_sky + s_payload)
+        insert_ok = s_valid & (~s_hit | s_found)
+        if dense and slice_start is None:
+            new_gi = gilib.dense_update(state.gi, insert_val, insert_ok)
+        elif dense:
+            new_gi = gilib.dense_update_slice(state.gi, slice_start,
+                                              insert_val, insert_ok)
+        else:
+            new_gi = sh.hash_insert(
+                state.gi,
+                *sh.spatial_hash_key(surfel_pos, surfel_dir, cell_size),
+                insert_val, frame_index, valid=insert_ok,
+                max_updates=settings.spatial_hash.insert_cap or None)
+            # A hit cell not in the cache requeues into the surfel's own
+            # slot.
+            s_noise = noiselib.bn_fetch_pool(bn_scalar, layer, (114, 40),
+                                             rand, p)[:, 0]
+            s_requeue = s_hit & ~s_found & (s_noise > 1.0 / (s_cnt + 2.0))
+            s_center = shade.entry_leaf_center(scene, s_res, s_origin, s_dir)
+            requeued = torch.where(
+                s_requeue[:, None],
+                torch.cat([s_center, s_face.float()[:, None]], dim=-1),
+                pool_rows)
+            if slice_start is None:
+                surfels = requeued
+            else:
+                surfels = surfels.clone()
+                surfels[slice_start:slice_start + p] = requeued
+
+    # -------------------------------------------------- 5. post
     dep2 = from_tiles(g["depth"])
     nor2 = from_tiles(normal)
-    ind2 = from_tiles(torch.where(hit[:, None], illum, 0.0))
-    rh, hh, dh, nh, wh, mh = denoiselib.downsample_inputs(
-        ind2, from_tiles(hitdist), dep2, nor2, from_tiles(g["world_pos"]),
-        from_tiles(g["motion"]))
-    # One fewer à-trous iteration at half res (same world-space footprint).
-    den_settings = dataclasses.replace(
-        settings.denoiser,
-        atrous_iterations=max(settings.denoiser.atrous_iterations - 1, 1))
-    den_h, hd_h, new_den = denoiselib.denoise(
-        state.denoiser, rh, hh, dh, nh, wh, mh, state.prev_view_proj,
-        den_settings)
-    ind_full, acc_hd = denoiselib.upsample_bilateral(den_h, hd_h, dh, nh,
-                                                     dep2, nor2)
+    wpos2 = from_tiles(g["world_pos"])
+    mot2 = from_tiles(g["motion"])
     valid2 = torch.isfinite(dep2)
-    denoised = torch.where(valid2[..., None], ind_full, 0.0) + from_tiles(
-        torch.where(hit[:, None], direct, sky_out))
+    if not gi:
+        # Direct light alone is deterministic: nothing to denoise.
+        denoised = from_tiles(radiance_img)
+        new_den = state.denoiser
+    elif not _half_res(settings):
+        if settings.denoiser.split_direct:
+            # The indirect alone rides the temporal chain; direct composes
+            # after (the half-res estimator at full resolution).
+            den_i, _hd, new_den = denoiselib.denoise(
+                state.denoiser, from_tiles(torch.where(hit[:, None], illum,
+                                                       0.0)),
+                from_tiles(hitdist), dep2, nor2, wpos2, mot2,
+                state.prev_view_proj, settings.denoiser)
+            denoised = torch.where(valid2[..., None], den_i, 0.0) + from_tiles(
+                torch.where(hit[:, None], direct, sky_out))
+        else:
+            # Direct and indirect through the denoiser together, as the
+            # reference's REBLUR input.
+            denoised, _hd, new_den = denoiselib.denoise(
+                state.denoiser, from_tiles(radiance_img), from_tiles(hitdist),
+                dep2, nor2, wpos2, mot2, state.prev_view_proj,
+                settings.denoiser)
+    else:
+        ind2 = from_tiles(torch.where(hit[:, None], illum, 0.0))
+        rh, hh, dh, nh, wh, mh = denoiselib.downsample_inputs(
+            ind2, from_tiles(hitdist), dep2, nor2, wpos2, mot2)
+        # One fewer à-trous iteration at half res (same world-space
+        # footprint).
+        den_settings = dataclasses.replace(
+            settings.denoiser,
+            atrous_iterations=max(settings.denoiser.atrous_iterations - 1, 1))
+        den_h, hd_h, new_den = denoiselib.denoise(
+            state.denoiser, rh, hh, dh, nh, wh, mh, state.prev_view_proj,
+            den_settings)
+        ind_full, _hd = denoiselib.upsample_bilateral(den_h, hd_h, dh, nh,
+                                                      dep2, nor2)
+        denoised = torch.where(valid2[..., None], ind_full, 0.0) + from_tiles(
+            torch.where(hit[:, None], direct, sky_out))
 
     weighted = exposurelib.mean_bin(denoised, settings.exposure)
     new_avg = exposurelib.adapt_average_luminance(
@@ -498,7 +570,7 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
 
     aux = dict(
         depth=dep2, albedo=albedo_img, normal=nor2,
-        motion=from_tiles(g["motion"]), voxel_id=from_tiles(g["voxel_id"]),
+        motion=mot2, voxel_id=from_tiles(g["voxel_id"]),
         radiance=from_tiles(radiance_img), hitdist=from_tiles(hitdist),
         denoised=denoised, exposure=exposure,
     ) if return_aux else {}
@@ -515,7 +587,10 @@ def frame_ray_count(scene, settings: RenderSettings) -> int:
     pool slot, or per slot of the frame's slice under a pool budget.
     Dense mode: per valid cache cell, or, under a refresh budget, per
     valid cell of the frame's slice (``budget`` rows times the valid
-    fraction of all rows)."""
+    fraction of all rows). Without GI, the primary and shadow launches
+    alone."""
+    if not _gi_enabled(settings):
+        return settings.width * settings.height * 2
     if settings.gi_cache != "dense":
         pool = settings.surfels.pool_size
         budget = settings.surfels.pool_refresh_budget

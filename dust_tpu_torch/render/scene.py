@@ -10,6 +10,14 @@ supports few operations.
 The HDDA traversal tables (``hdda_*``) hold the contents of the Pallas
 tables (:func:`dust_tpu.ops.pallas_trace.build_pallas_tables`) laid out
 flat instead of in (8, 128) tiles; see :mod:`dust_tpu_torch.ops.hdda`.
+The eager traversal (:mod:`dust_tpu_torch.ops.traverse`) reads
+``cell_info`` instead, one int32 per 4³ block cell:
+
+* ``v >= 0``: an occupied block; ``v`` is the leaf row in the model's
+  flat leaf arrays;
+* ``v < 0``: empty; ``-v`` is a conservative chebyshev distance (in
+  blocks) to the nearest occupied block, so a ray at this cell may skip
+  ``-v`` blocks in one step.
 """
 
 from __future__ import annotations
@@ -23,13 +31,48 @@ from dust_tpu_torch.vox.loader import VoxScene
 from dust_tpu_torch.ops.hdda import build_hdda_tables, stack_tables
 
 __all__ = ["DeviceScene", "build_device_scene", "scene_from_numpy",
-           "leaf_layout", "material_layout", "pad_rows_past_dead_zone"]
+           "leaf_layout", "material_layout", "pad_rows_past_dead_zone",
+           "chebyshev_distance_field", "cell_info_grid"]
+
+MAX_SKIP = 63  # distances are clamped; any value >= 1 is a valid skip
+
+
+def chebyshev_distance_field(occupied: np.ndarray,
+                             max_dist: int = MAX_SKIP) -> np.ndarray:
+    """Chebyshev (L-infinity) distance to the nearest occupied cell of a
+    (64, 64, 64) grid, clamped to ``max_dist``; occupied cells get 0.
+    Iterative 3³ dilation in numpy."""
+    occ = occupied.astype(bool)
+    dist = np.full(occ.shape, max_dist, dtype=np.int32)
+    dist[occ] = 0
+    frontier = occ
+    for d in range(1, max_dist):
+        if frontier.all():
+            break
+        p = np.pad(frontier, 1, constant_values=False)
+        grown = np.zeros_like(frontier)
+        for dx in (0, 1, 2):
+            for dy in (0, 1, 2):
+                for dz in (0, 1, 2):
+                    grown |= p[dx:dx + 64, dy:dy + 64, dz:dz + 64]
+        dist[grown & ~frontier] = d
+        frontier = grown
+    return dist
+
+
+def cell_info_grid(leaf_grid: np.ndarray,
+                   max_dist: int = MAX_SKIP) -> np.ndarray:
+    """Leaf rows and skip distances fused into one int32 lookup table."""
+    occ = leaf_grid >= 0
+    dist = chebyshev_distance_field(occ, max_dist)
+    return np.where(occ, leaf_grid, -np.maximum(dist, 1)).astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceScene:
     """All scene state the frame reads, as tensors on one device."""
 
+    cell_info: torch.Tensor        # (M, 64, 64, 64) int32 (eager traversal)
     mask_lo: torch.Tensor          # (M, Lmax) int32 (u32 bits)
     mask_hi: torch.Tensor          # (M, Lmax) int32 (u32 bits)
     leaf_origin: torch.Tensor      # (M, Lmax, 3) int32
@@ -60,7 +103,7 @@ class DeviceScene:
 
     @property
     def num_models(self) -> int:
-        return self.mask_lo.shape[0]
+        return self.cell_info.shape[0]
 
     @property
     def inst_leaf_base(self) -> tuple:
@@ -154,6 +197,7 @@ def build_device_scene(scene: VoxScene, device) -> DeviceScene:
     lmax = -(-(lmax + lmax // 4) // 64) * 64
     M = len(geos)
 
+    cell = np.full((M, 64, 64, 64), -MAX_SKIP, dtype=np.int32)
     mask_lo = np.zeros((M, lmax), dtype=np.uint32)
     mask_hi = np.zeros((M, lmax), dtype=np.uint32)
     origin = np.zeros((M, lmax, 3), dtype=np.int32)
@@ -163,6 +207,7 @@ def build_device_scene(scene: VoxScene, device) -> DeviceScene:
     materials = []
     for i, g in enumerate(geos):
         L = g.num_blocks
+        cell[i] = cell_info_grid(g.flat.leaf_grid)
         mask_lo[i, :L] = g.flat.mask_lo
         mask_hi[i, :L] = g.flat.mask_hi
         origin[i, :L] = g.flat.leaf_origin
@@ -221,6 +266,7 @@ def build_device_scene(scene: VoxScene, device) -> DeviceScene:
 
     o2w_t = dev(o2w)
     return DeviceScene(
+        cell_info=dev(cell),
         mask_lo=dev(mask_lo.view(np.int32)),
         mask_hi=dev(mask_hi.view(np.int32)),
         leaf_origin=dev(origin),
@@ -268,6 +314,7 @@ def scene_from_numpy(fields: dict, meta: dict, device) -> DeviceScene:
         return torch.from_numpy(a).to(device)
 
     return DeviceScene(
+        cell_info=dev(fields["cell_info"], np.int32),
         mask_lo=dev(bits("mask_lo")),
         mask_hi=dev(bits("mask_hi")),
         leaf_origin=dev(fields["leaf_origin"], np.int32),

@@ -142,9 +142,11 @@ def test_frame_runs_six_traces(frames, monkeypatch):
                      "rough"]
 
 
+# The eager backend, precise shadows and the full-resolution denoise
+# render now (tests/test_torch_branches.py); non-palette materials are
+# the one setting still to port.
 @pytest.mark.parametrize("change", [
-    dict(traversal_backend="jnp"), dict(shadow_mode="precise"),
-    dict(width=129, height=72), dict(instance_materials=(1,)),
+    pytest.param(dict(instance_materials=(1,)), id="change3"),
 ])
 def test_unported_settings_raise(frames, change):
     ts, tc, tsk, tbn = frames["scenes"]

@@ -323,7 +323,7 @@ def test_cli_renders_hash_frame_on_cpu(tmp_path):
         [sys.executable, "-m", "dust_tpu_torch.app.castle", "--width", "128",
          "--height", "72", "--frames", "2", "--teapot", "--gi-cache", "hash",
          "--hash-capacity", "65536", "--surfels", "4096", "--device", "cpu",
-         "--out", str(out)],
+         "--backend", "pallas", "--out", str(out)],
         cwd=repo, env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1"),
         capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr

@@ -15,8 +15,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _run(args, cwd=REPO, timeout=600):
-    env = dict(os.environ, PYTHONPATH=REPO)
+def _run(args, cwd=REPO, timeout=600, **env_extra):
+    env = dict(os.environ, PYTHONPATH=REPO, **env_extra)
     return subprocess.run([sys.executable] + args, cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
@@ -59,7 +59,8 @@ def test_cli_renders_on_cpu_when_asked(tmp_path):
     out = tmp_path / "c.png"
     r = _run(["-m", "dust_tpu_torch.app.castle", "--width", "128",
               "--height", "72", "--frames", "2", "--teapot", "--device",
-              "cpu", "--out", str(out)])
+              "cpu", "--backend", "pallas", "--out", str(out)],
+             OMP_NUM_THREADS="1")
     assert r.returncode == 0, r.stderr
     from dust_tpu_torch.utils.image import read_png
     img = read_png(str(out))

@@ -196,7 +196,7 @@ def test_pcg_scalar():
 
 @pytest.mark.parametrize("H, W", [(16, 256), (72, 128), (18, 30)])
 def test_ray_tiling(H, W):
-    to_tiles, from_tiles = tpipe._tiling(H, W)
+    to_tiles, from_tiles = tpipe._tiling(H, W, True)
     img = np.arange(H * W * 3, dtype=np.float32).reshape(H, W, 3)
     flat = to_tiles(torch.as_tensor(img))
     if H % 8 == 0 and W % 128 == 0:

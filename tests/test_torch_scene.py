@@ -17,7 +17,7 @@ from tests.torch_parity import five_teapots_vox, scene_numpy, teapot_vox
 
 SCENES = {"teapot": teapot_vox, "five_teapots": five_teapots_vox}
 # Port field -> reference field, compared bit for bit.
-SAME = {"mask_lo": "mask_lo", "mask_hi": "mask_hi",
+SAME = {"cell_info": "cell_info", "mask_lo": "mask_lo", "mask_hi": "mask_hi",
         "leaf_origin": "leaf_origin", "avg_albedo": "avg_albedo",
         "model_aabb_min": "model_aabb_min",
         "model_aabb_max": "model_aabb_max", "voxel_attr": "voxel_attr",
