@@ -70,7 +70,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    CPU on 65,536 sampled rays per mode (every (inst, row, bit) equal);
 16. tests/test_quality.py's converged-ground-truth gates at its bounds
    and frame counts (tests/golden/castle_gt_256x256.npz, loaded with
-   numpy), on the kernel's backend.
+   numpy), on the kernel's backend;
+17. edits and refit with the GI frame re-rendered (BASELINE config #4;
+   dust_tpu_torch/bench_edits.py's frame: castle + teapot at rest,
+   1920x1080, dense GI): 10-frame runs, the better of two, with no
+   edit, with a leaf edit every frame, and with splices staged off the
+   render thread, then one forced rebuild (a slab of 4096 new leaves).
+   After each tier: the editor's tier, 6 scene-kernel launches per
+   frame, every tensor of the card's scene equal (torch.equal) to a CPU
+   editor's given the same edits, the dense GI albedo words equal to a
+   fresh cache of the edited scene, and the scene kernel equal to its
+   plain version on 65,536 of the frame's rays per mode; then one
+   loop-route frame on the rebuilt tables with the instance kernels held
+   the same way; a frame with and one without a leaf edit under
+   torch.profiler (the edit adds no host sync); a 1080p frame with the
+   teapot on EmissiveMaterial (and
+   at 256x144 card vs CPU RMSE < 0.01, the teapot's pixels brighter);
+   a checkpoint saved after frame 2 and loaded into a fresh state on the
+   card renders frame 3 equal to the run that never stopped; and the
+   isolated refit tiers' latencies (bench_edits' default mode).
 
 Every config is built and rendered through the bench module
 (dust_tpu_torch/bench.py). Before the result it prints each scene-kernel
@@ -127,6 +145,10 @@ RMSE_DENSE = 0.045
 RMSE_HASH = 0.045
 GT_FRAMES, GT_CONV_FRAMES, GT_CONV_AVG = 16, 32, 16
 REPLACES = "dust_tpu/ops/pallas_trace.py:"
+# The edits phase: frames per interleaved run (bench_edits' --edits), and
+# edits per isolated tier.
+EDIT_FRAMES = 10
+ISOLATED_EDITS = 5
 
 
 def _setup(device, width, height, config="gi", capacity=None, pool=None,
@@ -175,15 +197,17 @@ def _frames(ctx, count, first=0):
     return out
 
 
-def _timed_frames(ctx, count, first):
-    """``count`` synchronised frames: (last output, seconds per frame)."""
+def _timed_frames(ctx, count, first, render=None):
+    """``count`` synchronised frames: (last output, seconds per frame).
+    ``render``: renders one frame (and returns its output) in place of
+    ctx's next bench frame."""
     import torch
 
     times, out = [], None
     for f in range(first, first + count):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = _frames(ctx, 1, first=f)
+        out = _frames(ctx, 1, first=f) if render is None else render()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return out, times
@@ -306,13 +330,15 @@ def _bound(tensors, flops):
                                                            "operations")
 
 
-def _hold(label, run, run_plain, full, tables, flops, plain_timed=True):
+def _hold(label, run, run_plain, full, tables, flops, plain_timed=True,
+          timed=True):
     """Kernel against plain version on a subsample of the recorded launch
-    ``full``: every output must be equal (torch.equal). Then the kernel
-    is timed on the full launch, replayed from a CUDA graph (and, with
-    ``plain_timed``, the plain version from the host); its bound counts
-    ``flops`` float operations. Returns a dict: max |dt|, kernel ms,
-    plain ms (or None), bound ms and what bounds it."""
+    ``full``: every output must be equal (torch.equal). Then, with
+    ``timed``, the kernel is timed on the full launch, replayed from a
+    CUDA graph (and, with ``plain_timed``, the plain version from the
+    host); its bound counts ``flops`` float operations. Returns a dict:
+    max |dt|, and with ``timed`` kernel ms, plain ms (or None), bound ms
+    and what bounds it."""
     import torch
 
     sub = _subsample(full, SUBSAMPLE, tables)
@@ -326,6 +352,8 @@ def _hold(label, run, run_plain, full, tables, flops, plain_timed=True):
     if not equal:
         raise SystemExit(f"{label}: kernel and plain differ "
                          f"(agreement {agree:.4%}, max |dt| {err:.3g})")
+    if not timed:
+        return dict(err=err)
     bound, bound_by = _bound(full + run(full), flops)
     ms = _kernel_ms(lambda: run(full))
     plain_ms = _ms(lambda: run_plain(full), 1) if plain_timed else None
@@ -337,9 +365,10 @@ def _hold(label, run, run_plain, full, tables, flops, plain_timed=True):
                 bound_by=bound_by)
 
 
-def _recorded_frame(ctx, f, module, name, on_call):
-    """Renders frame ``f`` (carrying ctx's state) with ``module.name``
-    wrapped so that ``on_call(args, kwargs)`` sees every launch."""
+def _recording(module, name, on_call, render):
+    """Calls ``render()`` with ``module.name`` wrapped so that
+    ``on_call(args, kwargs)`` sees every launch; returns what it
+    returns."""
     launch = getattr(module, name)
 
     def record(*args, **kw):
@@ -348,21 +377,36 @@ def _recorded_frame(ctx, f, module, name, on_call):
 
     setattr(module, name, record)
     try:
-        out, ctx["state"] = _render(ctx, f, ctx["state"])
+        return render()
     finally:
         setattr(module, name, launch)
+
+
+def _recorded_frame(ctx, f, module, name, on_call):
+    """Renders frame ``f`` (carrying ctx's state) with ``module.name``
+    wrapped so that ``on_call(args, kwargs)`` sees every launch."""
+    out, ctx["state"] = _recording(module, name, on_call,
+                                   lambda: _render(ctx, f, ctx["state"]))
     return out
 
 
-def _hold_scene_kernel(hdda, ctx, f, label, plain_timed):
+def _hold_scene_kernel(hdda, ctx, f, label, plain_timed, render=None,
+                       timed=True):
     """The scene kernel against its plain version on frame ``f``'s real
-    rays, and its time: the first launch of each mode. Returns {mode:
-    _hold's dict}."""
+    rays, and (with ``timed``) its time: the first launch of each mode.
+    ``render``: a function that renders the frame instead of frame ``f``
+    of ctx. Returns {mode: _hold's dict}."""
     import torch
 
     first = {}
-    _recorded_frame(ctx, f, hdda, "hdda", lambda a, kw: first.setdefault(
-        kw["mode"], a + (kw.get("t_ao"),)))
+
+    def keep(a, kw):
+        first.setdefault(kw["mode"], a + (kw.get("t_ao"),))
+
+    if render is None:
+        _recorded_frame(ctx, f, hdda, "hdda", keep)
+    else:
+        _recording(hdda, "hdda", keep, render)
     torch.cuda.synchronize()
     held = {}
     for mode in hdda.MODES:
@@ -376,7 +420,7 @@ def _hold_scene_kernel(hdda, ctx, f, label, plain_timed):
 
         flops = SETUP_FLOPS * full[7].shape[0] * full[3].shape[0]
         held[mode] = _hold(f"{label} {mode}", run, run_plain, full, 7, flops,
-                           plain_timed)
+                           plain_timed, timed)
     return held
 
 
@@ -385,10 +429,11 @@ def _occupied(state) -> int:
     return int((state.gi.table.view(-1, 4)[:, 0] != 0).sum())
 
 
-def _profile_frame(ctx, f):
-    """One frame under torch.profiler: (CUDA kernels, memory copies and
-    sets, host syncs, device ms, wall ms, [(device ms, launches, name)]
-    of the kernels that took the most device time)."""
+def _profile_frame(ctx, f, render=None):
+    """One frame under torch.profiler (frame ``f`` of ctx, or what
+    ``render()`` renders): (CUDA kernels, memory copies and sets, host
+    syncs, device ms, wall ms, [(device ms, launches, name)] of the
+    kernels that took the most device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -396,7 +441,7 @@ def _profile_frame(ctx, f):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _frames(ctx, 1, first=f)
+        _frames(ctx, 1, first=f) if render is None else render()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = copies = syncs = 0
@@ -420,15 +465,18 @@ def _profile_frame(ctx, f):
     return kernels, copies, syncs - 1, device_us / 1e3, 1e3 * wall, top
 
 
-def _print_profile(label, ctx, f, card):
-    """Profiles frame ``f`` (_profile_frame) and prints what it found."""
-    kernels, copies, syncs, dev_ms, wall_ms, top = _profile_frame(ctx, f)
+def _print_profile(label, ctx, f, card, render=None):
+    """Profiles frame ``f`` (_profile_frame), prints what it found and
+    returns the number of host syncs."""
+    kernels, copies, syncs, dev_ms, wall_ms, top = _profile_frame(ctx, f,
+                                                                  render)
     print(f"{label} frame {f} under torch.profiler: {kernels} CUDA kernels, "
           f"{copies} copies/sets, {syncs} host syncs, {dev_ms:.2f} ms device "
           f"time in {wall_ms:.2f} ms ({100.0 * dev_ms / wall_ms:.1f}% busy) "
           f"[{card}]")
     for ms_k, count, name in top:
         print(f"  {ms_k:8.3f} ms in {count:5d} launches: {name[:90]}")
+    return syncs
 
 
 def _hash_tables_agree(a, b):
@@ -751,6 +799,240 @@ def _gates(dev, here, card):
     return {name: value for name, value, _ in gates}
 
 
+def _scenes_equal(label, card, cpu):
+    """Every tensor of the card's DeviceScene torch.equal to the CPU's,
+    and the same static tables."""
+    import dataclasses
+
+    import torch
+
+    for f in dataclasses.fields(cpu):
+        a, b = getattr(card, f.name), getattr(cpu, f.name)
+        same = (torch.equal(a.cpu(), b) if isinstance(b, torch.Tensor)
+                else a == b)
+        if not same:
+            raise SystemExit(f"{label}: the card's scene and the CPU "
+                             f"editor's differ in {f.name}")
+
+
+def _edit_tier(hdda, label, ctx, cpu_ed, done, mode, frames, launches):
+    """Checks after an edit tier: the editor's last tier, 6 scene-kernel
+    launches per frame rendered, the card's scene equal to the CPU
+    editor's given the same edits (from ``done`` on, each followed by a
+    refit), the dense GI table's albedo words equal to a fresh cache of
+    the edited scene, and the scene kernel equal to its plain version on
+    a frame's real rays of every mode. Returns the number of edits
+    replayed so far."""
+    import torch
+    from dust_tpu_torch import bench_edits
+    from dust_tpu_torch.ops import gi_cache as gilib
+
+    if ctx["editor"].last_refit_mode != mode:
+        raise SystemExit(f"{label}: the last refit took the "
+                         f"{ctx['editor'].last_refit_mode} tier, not {mode}")
+    _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, frames,
+                    f"{label} hdda_scene")
+    launches[label] = dict(hdda.LAUNCHES)
+    for model, coords, idx in ctx["edits"][done:]:
+        cpu_ed.set_voxels(model, coords, idx)
+        cpu_ed.refit()
+    if cpu_ed.last_refit_mode != mode:
+        raise SystemExit(f"{label}: the CPU editor took the "
+                         f"{cpu_ed.last_refit_mode} tier")
+    _scenes_equal(label, ctx["scene"], cpu_ed.device)
+    fresh = gilib.make_dense_gi_cache(ctx["scene"]).table[:, 2]
+    if not torch.equal(ctx["state"].gi.table[:, 2], fresh):
+        raise SystemExit(f"{label}: the dense GI albedo words are stale")
+    print(f"{label}: tier {mode}, {len(ctx['edits'])} edits; scene equal to "
+          f"the CPU editor's, GI albedo words equal to a fresh cache")
+    _hold_scene_kernel(hdda, ctx, 0, f"{label} hdda_scene", False,
+                       render=lambda: bench_edits.render(ctx), timed=False)
+    return len(ctx["edits"])
+
+
+def _edits_phase(hdda, dev, card, reset_counts, rmse):
+    """Phase 17: edits and refit with the GI frame re-rendered
+    (dust_tpu_torch/bench_edits.py's frame). Returns (its timings, the
+    scene kernel's launches by tier, the instance kernels' launches on
+    the loop-route frame)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from dust_tpu_torch import bench_edits as be
+    from dust_tpu_torch.render import materials as matlib
+    from dust_tpu_torch.render.edits import SceneEditor
+    from dust_tpu_torch.render.pipeline import make_frame_state
+    from dust_tpu_torch.render.scene import build_device_scene
+    from dust_tpu_torch.utils.checkpoint import load_state, save_state
+    from dust_tpu_torch.vox import procgen
+    from dust_tpu_torch.vox.loader import load_vox_scene
+
+    n = EDIT_FRAMES
+    ctx = be.setup(dev)
+    vox = load_vox_scene(procgen.castle_scene_bytes())
+    procgen.add_teapot(vox)
+    cpu_ed = SceneEditor(vox, build_device_scene(vox, "cpu"))
+    _scenes_equal("edits, as built", ctx["scene"], cpu_ed.device)
+    be.render(ctx)
+    torch.cuda.synchronize()
+    launches, times = {}, {}
+
+    # ---- interleaved: no edit, a leaf edit every frame, staged splices --
+    reset_counts()
+    times["base_ms"] = min(be.run(ctx, n), be.run(ctx, n))
+    _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, 2 * n,
+                    "edits baseline hdda_scene")
+    launches["edits baseline"] = dict(hdda.LAUNCHES)
+    reset_counts()
+    times["leaf_ms"] = min(be.run(ctx, n, lambda f: be.leaf_edit(ctx, f)),
+                           be.run(ctx, n, lambda f: be.leaf_edit(ctx, f)))
+    done = _edit_tier(hdda, "edits leaf", ctx, cpu_ed, 0, "leaf", 2 * n,
+                      launches)
+
+    def edited_frame():
+        be.leaf_edit(ctx, 2 * n)
+        return be.render(ctx)
+
+    # One frame without and one with a leaf edit under torch.profiler (the
+    # later tiers' replay takes this edit too): the leaf tier adds no host
+    # sync.
+    plain_syncs = _print_profile("edits, no edit,", ctx, 0, card,
+                                 lambda: be.render(ctx))
+    edit_syncs = _print_profile("edits, a leaf edit,", ctx, 0, card,
+                                edited_frame)
+    if edit_syncs != plain_syncs:
+        raise SystemExit(f"edits: a leaf edit added host syncs "
+                         f"({edit_syncs} against {plain_syncs})")
+    reset_counts()
+    every = max(n // 2, 1)
+    times["splice_ms"] = min(
+        be.run(ctx, n, lambda f: be.splice_step(ctx, f, every)),
+        be.run(ctx, n, lambda f: be.splice_step(ctx, f, every)))
+    be.land_splice(ctx)
+    times["swap_frames"] = list(ctx["splice_swaps"])
+    if not ctx["splice_swaps"]:
+        raise SystemExit("edits: no staged splice swapped in")
+    done = _edit_tier(hdda, "edits splice", ctx, cpu_ed, done, "splice",
+                      2 * n, launches)
+
+    # ---- one forced rebuild --------------------------------------------
+    be.edit(ctx, be.slab_voxels(), 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx["scene"], ctx["state"] = ctx["editor"].refit(ctx["state"])
+    torch.cuda.synchronize()
+    times["rebuild_in_loop_ms"] = 1e3 * (time.perf_counter() - t0)
+    reset_counts()
+    out, frame_s = _timed_frames(ctx, 2, 0, lambda: be.render(ctx))
+    done = _edit_tier(hdda, "edits rebuild", ctx, cpu_ed, done, "rebuild", 2,
+                      launches)
+    img = out.float()
+    if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.02):
+        raise SystemExit("edits rebuild: output is not a finite, non-black "
+                         "image")
+    print(f"edits: base {times['base_ms']:.2f}, leaf edit every frame "
+          f"{times['leaf_ms']:.2f}, staged splice {times['splice_ms']:.2f} "
+          f"ms/frame (swaps after {times['swap_frames']} frames); the "
+          f"rebuild refit {times['rebuild_in_loop_ms']:.1f} ms, frames after "
+          f"it {', '.join(f'{1e3 * t:.1f}' for t in frame_s)} ms [{card}]")
+
+    # ---- the loop route on the rebuilt tables: the instance kernels -----
+    os.environ["DUST_PALLAS_SCENE"] = "loop"
+    try:
+        first = {}
+        reset_counts()
+        _recording(hdda, "hdda_instance", lambda a, kw: first.setdefault(
+            kw["mode"], a + (None,) * (8 - len(a))),
+            lambda: be.render(ctx))
+        per_frame = {m: ctx["scene"].num_instances * k
+                     for m, k in SCENE_LAUNCHES.items()}
+        _check_launches(hdda.INSTANCE_LAUNCHES, per_frame, 1,
+                        "edits loop hdda_instance")
+        _check_launches(hdda.LAUNCHES, NO_LAUNCHES, 1, "edits loop hdda_scene")
+        loop_launches = dict(hdda.INSTANCE_LAUNCHES)
+        torch.cuda.synchronize()
+        for mode in hdda.MODES:
+            _hold(f"edits loop hdda_instance {mode}",
+                  lambda a, m=mode: hdda.hdda_instance(*a[:8], mode=m),
+                  lambda a, m=mode: hdda.hdda_instance_plain(*a[:8], m),
+                  first[mode], 3, 0, timed=False)
+    finally:
+        os.environ.pop("DUST_PALLAS_SCENE", None)
+
+    # ---- the teapot on the emissive material ---------------------------
+    saved = matlib.material_registry()
+    matlib.register_material(1, matlib.EmissiveMaterial(strength=6.0))
+    try:
+        ids = tuple(int(i == 1) for i in range(ctx["scene"].num_instances))
+        lit = be.setup(dev)
+        lit["settings"] = dataclasses.replace(lit["settings"],
+                                              instance_materials=ids)
+        reset_counts()
+        out, frame_s = _timed_frames(lit, 2, 0, lambda: be.render(lit))
+        _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, 2,
+                        "emissive hdda_scene")
+        _report_frame("castle+teapot, emissive teapot", lit, out, frame_s,
+                      card)
+        del lit
+        small = []
+        for d, mats in ((dev, ()), (dev, ids), (torch.device("cpu"), ids)):
+            c = be.setup(d, 256, 144)
+            c["settings"] = dataclasses.replace(c["settings"],
+                                                instance_materials=mats)
+            small.append(be.render(c, return_aux=True))
+        (plain, aux), (card_lit, _), (cpu_lit, _) = small
+        err = rmse(card_lit, cpu_lit)
+        px = (aux["voxel_id"] & 0xFFFF) == 1
+        gain = float(card_lit[px].mean() - plain[px].mean())
+        print(f"256x144 emissive teapot: card vs CPU plain RMSE {err:.5f}; "
+              f"{int(px.sum())} teapot pixels brighter by {gain:.4f}")
+        if not err < 0.01:
+            raise SystemExit(f"card and CPU emissive frames differ: RMSE "
+                             f"{err:.5f}")
+        if not (int(px.sum()) > 20 and gain > 0.02):
+            raise SystemExit(f"emissive teapot: {int(px.sum())} pixels, "
+                             f"brighter by {gain:.4f}")
+    finally:
+        matlib._REGISTRY.clear()
+        matlib._REGISTRY.update(saved)
+
+    # ---- checkpoint resume ---------------------------------------------
+    res = be.setup(dev)
+    for _ in range(2):
+        be.render(res)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        save_state(path, res["state"])
+        resumed = load_state(path, make_frame_state(res["settings"],
+                                                    res["scene"], dev))
+    if resumed.gi.table.device != ctx["scene"].device:
+        raise SystemExit("checkpoint: the loaded state is not on the card")
+    out_a, state_a = be.render(res), res["state"]
+    res["state"] = resumed
+    out_b, state_b = be.render(res), res["state"]
+    same = (torch.equal(out_a, out_b)
+            and torch.equal(state_a.gi.table, state_b.gi.table)
+            and torch.equal(state_a.denoiser.history,
+                            state_b.denoiser.history))
+    print(f"checkpoint after frame 2, resumed on the card: frame 3 equal "
+          f"{same}")
+    if not same:
+        raise SystemExit("checkpoint: the resumed frame 3 differs")
+    del res, resumed, state_a, state_b
+
+    # ---- the isolated refit tiers ----------------------------------------
+    iso = be.isolated(dev, ISOLATED_EDITS)
+    times["isolated"] = iso
+    print(f"edits, isolated on the castle: build + upload "
+          f"{iso['build_ms']:.1f} ms; best / median ms: floor "
+          f"{iso['floor_ms'][0]:.2f} / {iso['floor_ms'][1]:.2f}, leaf "
+          f"{iso['leaf_ms'][0]:.2f} / {iso['leaf_ms'][1]:.2f}, splice "
+          f"{iso['splice_ms'][0]:.2f} / {iso['splice_ms'][1]:.2f}, rebuild "
+          f"{iso['rebuild_ms'][0]:.2f} / {iso['rebuild_ms'][1]:.2f} [{card}]")
+    return times, launches, loop_launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -950,6 +1232,10 @@ def main() -> int:
     # ---- 16. the converged-ground-truth gates --------------------------
     gates = _gates(dev, here, card)
 
+    # ---- 17. edits and refit with the GI frame re-rendered -------------
+    edit_times, edit_launches, loop_launches = _edits_phase(
+        hdda, dev, card, reset_counts, rmse)
+
     for k in kernels:
         if k["name"].startswith("hdda_scene<"):
             mode = k["name"][len("hdda_scene<"):-1]
@@ -958,6 +1244,8 @@ def main() -> int:
                                      "hash-reference": hash_launches[mode]}
             k["launches_by_path"].update(
                 {path: counts[mode] for path, counts in by_path.items()})
+            k["launches_by_path"].update(
+                {path: counts[mode] for path, counts in edit_launches.items()})
             h = held_4k[mode]
             k["gi_4k"] = dict(max_abs_err=h["err"], ms=h["ms"],
                               bound_ms=h["bound_ms"], bound_by=h["bound_by"])
@@ -968,7 +1256,12 @@ def main() -> int:
                         plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
                         bound_by=h["bound_by"])
                 for w, h in pool_held.items()}
-    print(json.dumps({"eager_backend": eager, "gates": gates}))
+        if k["name"].startswith("hdda_instance<"):
+            mode = k["name"][len("hdda_instance<"):-1]
+            k["launches_by_path"] = {"stress": k["launches"],
+                                     "edits loop": loop_launches[mode]}
+    print(json.dumps({"eager_backend": eager, "gates": gates,
+                      "edits": edit_times}))
     for mode in hdda.MODES:
         h = stress_held[mode]
         print(f"stress hdda_scene<{mode}>: {h['ms']:.3f} ms per launch at "

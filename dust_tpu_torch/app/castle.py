@@ -6,7 +6,8 @@ Usage:
   python -m dust_tpu_torch.app.castle --width 640 --height 360 \\
       --frames 8 --out castle.png [--scene castle.vox] [--teapot] \\
       [--orbit] [--all-frames] [--device cuda|cpu] [--backend jnp|pallas] \\
-      [--tile N] [--gi-cache dense|hash] [--hash-capacity N] [--surfels N]
+      [--tile N] [--gi-cache dense|hash] [--hash-capacity N] [--surfels N] \\
+      [--frames-in-flight N]
 
 The reference CLI's flags and defaults. ``--backend`` picks the traversal:
 ``jnp`` (the default, as the reference's) is the eager torch wavefront,
@@ -14,17 +15,24 @@ which carries no kernel; ``pallas`` is the HDDA kernel. ``--device``
 defaults to ``cuda`` and fails when no CUDA device is present; the CPU
 (every kernel's plain PyTorch version) runs only when asked for with
 ``--device cpu``. The output defaults to ``castle.png`` in the temporary
-directory.
+directory. ``--frames-in-flight N`` (default 3) lets the host run at
+most N frames ahead of the device: a CUDA event is recorded after each
+frame, and the host waits on the oldest one when more than N are
+outstanding; 0 or less means no pacing. A crash writes a report into the
+temporary directory (:mod:`dust_tpu_torch.utils.crashlog`), and the frame
+times are logged (:class:`~dust_tpu_torch.utils.profiling.FrameDiagnostics`).
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import math
 import os
 import sys
 import tempfile
 import time
+from collections import deque
 
 
 def main(argv=None) -> int:
@@ -57,6 +65,10 @@ def main(argv=None) -> int:
     ap.add_argument("--gi-cache", choices=["dense", "hash"], default="dense",
                     help="GI cache (dense = a row per leaf face, refreshed "
                     "every frame; hash = the spatial hash with a surfel pool)")
+    ap.add_argument("--frames-in-flight", type=int, default=3,
+                    help="frame pacing: most frames dispatched and not yet "
+                    "finished on the device (rhyolite_bevy's 3 frames in "
+                    "flight, queue.rs:222); 0 = no pacing")
     args = ap.parse_args(argv)
 
     import torch
@@ -70,7 +82,9 @@ def main(argv=None) -> int:
     from dust_tpu_torch.config import (
         RenderSettings, SpatialHashSettings, SurfelSettings,
     )
+    from dust_tpu_torch.utils import crashlog
     from dust_tpu_torch.utils.image import write_png
+    from dust_tpu_torch.utils.profiling import FrameDiagnostics
     from dust_tpu_torch.vox import procgen
     from dust_tpu_torch.vox.loader import load_vox_scene
     from dust_tpu_torch.ops import camera as cameralib
@@ -96,6 +110,26 @@ def main(argv=None) -> int:
     bn = load_blue_noise(device)
     base_o2w = scene.obj_to_world.cpu().numpy()
 
+    # Crash reports and frame-time diagnostics, like the reference's
+    # SentryPlugin and FrameTimeDiagnosticsPlugin (examples/castle.rs:67).
+    crashlog.install({"scene": args.scene or "procgen-castle",
+                      "resolution": f"{args.width}x{args.height}"})
+    logging.basicConfig(level=logging.INFO)
+    diag = FrameDiagnostics(report_every=max(args.frames // 2, 2))
+
+    # Frame pacing (rhyolite's frames in flight): a CUDA event per frame.
+    # On the CPU every op has finished when it returns: nothing to pace.
+    inflight: deque = deque()
+
+    def pace():
+        if args.frames_in_flight <= 0 or device.type != "cuda":
+            return
+        marker = torch.cuda.Event()
+        marker.record()
+        inflight.append(marker)
+        if len(inflight) > args.frames_in_flight:
+            inflight.popleft().synchronize()
+
     t0 = time.perf_counter()
     out = None
     for f in range(args.frames):
@@ -116,6 +150,8 @@ def main(argv=None) -> int:
                                         bn.unitvec3_cosine, bn.scalar,
                                         settings, tile=args.tile,
                                         return_aux=False)
+        diag.frame()
+        pace()
         if args.all_frames:
             path = args.out.replace(".png", f"_{f:03d}.png")
             write_png(path, out.cpu().numpy())

@@ -1,6 +1,7 @@
-"""Histogram auto-exposure (port of :mod:`dust_tpu.ops.exposure`, the
-parts the frame uses). The index-weighted histogram total is the sum of
-the per-pixel bins, so no histogram is built."""
+"""Histogram auto-exposure (port of :mod:`dust_tpu.ops.exposure`). The
+index-weighted histogram total is the sum of the per-pixel bins, so the
+frame builds no histogram; :func:`luminance_histogram` is the diagnostic
+API."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ import torch
 from dust_tpu_torch.config import ExposureSettings
 from dust_tpu_torch.utils import color as colorlib
 
-__all__ = ["mean_bin", "adapt_average_luminance", "exposure_value"]
+__all__ = ["luminance_histogram", "mean_bin", "adapt_average_luminance",
+           "exposure_value"]
 
 
 def _bins(radiance: torch.Tensor, settings: ExposureSettings) -> torch.Tensor:
@@ -18,6 +20,15 @@ def _bins(radiance: torch.Tensor, settings: ExposureSettings) -> torch.Tensor:
         (torch.log2(torch.clamp(lum, min=1e-30)) - settings.min_log_luminance)
         / settings.log_luminance_range, 0.0, 1.0)
     return torch.where(lum < 0.005, 0, (log_lum * 254.0 + 1.0).int())
+
+
+def luminance_histogram(radiance: torch.Tensor,
+                        settings: ExposureSettings) -> torch.Tensor:
+    """(num_bins,) int32 counts of the per-pixel log-luminance bins
+    (auto_exposure.comp:55-70); bins past ``num_bins`` are not counted."""
+    bins = _bins(radiance, settings).reshape(-1).long()
+    counts = torch.bincount(bins, minlength=settings.num_bins)
+    return counts[:settings.num_bins].int()
 
 
 def mean_bin(radiance: torch.Tensor, settings: ExposureSettings):

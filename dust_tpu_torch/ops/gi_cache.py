@@ -26,7 +26,8 @@ from dust_tpu_torch.render.scene import pad_rows_past_dead_zone
 __all__ = ["DenseGICache", "make_dense_gi_cache", "dense_rows", "dense_cells",
            "cell_layout", "padded_cells", "dense_index", "dense_get",
            "dense_update", "dense_update_slice", "pack_working_set",
-           "pack_working_set_rows", "MAX_SAMPLE_COUNT"]
+           "pack_working_set_rows", "refresh_dense_albedo",
+           "MAX_SAMPLE_COUNT"]
 
 MAX_SAMPLE_COUNT = 404
 CELL_PAD = 512
@@ -94,6 +95,16 @@ def make_dense_gi_cache(scene) -> DenseGICache:
     alb6 = _albedo_words(scene)
     zeros = torch.zeros_like(alb6)
     return DenseGICache(table=torch.stack([zeros, zeros, alb6], dim=-1))
+
+
+def refresh_dense_albedo(cache: DenseGICache, scene) -> DenseGICache:
+    """Every row's albedo word rebuilt from a (refitted) scene, the
+    accumulated radiance kept. An edit reorders the edited model's leaf
+    rows, so their radiance is keyed to the old order until the running
+    mean re-converges, as the reference's spatial hash goes stale on
+    edits."""
+    return DenseGICache(table=torch.stack(
+        [cache.table[:, 0], cache.table[:, 1], _albedo_words(scene)], dim=-1))
 
 
 def pack_working_set_rows(radiance, count, albedo_col) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Packing and geometric helpers from the shader headers (port of the
-parts of :mod:`dust_tpu.ops.packing` the frame uses): the 32-bit LogLuv
-radiance word of the spatial hash, cube-face normals and ids, octahedral
-normal encoding, and the quaternion rotate of a +z sample into a normal
+"""Packing and geometric helpers from the shader headers (port of
+:mod:`dust_tpu.ops.packing`): the 32-bit LogLuv radiance word of the
+spatial hash, the NRD (REBLUR) YCoCg radiance + hit-distance pack and
+normal + roughness pack, cube-face normals and ids, octahedral normal
+encoding, and the quaternion rotate of a +z sample into a normal
 frame."""
 
 from __future__ import annotations
@@ -14,10 +15,15 @@ import torch
 from dust_tpu_torch.ops.fp import fma
 from dust_tpu_torch.utils import color as colorlib
 
-__all__ = ["encode_logluv", "decode_logluv", "cubed_normalize",
-           "normal_to_face_id", "face_id_to_normal",
-           "rotate_vector_by_normal", "encode_oct_normal", "decode_oct_normal",
-           "norm3"]
+__all__ = ["encode_logluv", "decode_logluv",
+           "pack_radiance_hitdist", "unpack_radiance_hitdist",
+           "linear_to_ycocg", "ycocg_to_linear",
+           "encode_oct_normal", "decode_oct_normal",
+           "pack_normal_roughness", "unpack_normal_roughness",
+           "cubed_normalize", "normal_to_face_id", "face_id_to_normal",
+           "rotate_vector_by_normal", "norm3"]
+
+NRD_FP16_MIN = 1e-7
 
 # float32 ln 2: the reference lowers log2(x) to log(x) / ln 2 and
 # exp2(x) to exp(x * ln 2).
@@ -133,18 +139,69 @@ def rotate_vector_by_normal(normal: torch.Tensor,
             + 2.0 * qw[..., None] * cross)
 
 
-def encode_oct_normal(n: torch.Tensor) -> torch.Tensor:
-    """Octahedral map of unit vectors to [0, 1]²."""
+def encode_oct_normal(n: torch.Tensor, signed: bool = False) -> torch.Tensor:
+    """Octahedral map of unit vectors to [0, 1]² (``signed``: [-1, 1]²)."""
     n = n / n.abs().sum(dim=-1, keepdim=True)
     wrap = (1.0 - n[..., [1, 0]].abs()) * _sign1(n[..., :2])
     xy = torch.where((n[..., 2] >= 0.0)[..., None], n[..., :2], wrap)
-    return xy * 0.5 + 0.5
+    return xy if signed else xy * 0.5 + 0.5
 
 
-def decode_oct_normal(p: torch.Tensor) -> torch.Tensor:
-    p = p * 2.0 - 1.0
+def decode_oct_normal(p: torch.Tensor, signed: bool = False,
+                      normalize: bool = True) -> torch.Tensor:
+    p = p if signed else p * 2.0 - 1.0
     z = 1.0 - p[..., 0].abs() - p[..., 1].abs()
     t = torch.clamp(-z, 0.0, 1.0)
     xy = p - t[..., None] * _sign1(p)
     n = torch.cat([xy, z[..., None]], dim=-1)
-    return n / norm3(n, keepdim=True)
+    return n / norm3(n, keepdim=True) if normalize else n
+
+
+def linear_to_ycocg(color: torch.Tensor) -> torch.Tensor:
+    r, g, b = color.unbind(-1)
+    y = r * 0.25 + g * 0.5 + b * 0.25
+    co = r * 0.5 - b * 0.5
+    cg = -0.25 * r + 0.5 * g - 0.25 * b
+    return torch.stack([y, co, cg], dim=-1)
+
+
+def ycocg_to_linear(color: torch.Tensor) -> torch.Tensor:
+    y, co, cg = color.unbind(-1)
+    t = y - cg
+    return torch.clamp(torch.stack([t + co, y + cg, t - co], dim=-1),
+                       min=0.0)
+
+
+def pack_radiance_hitdist(radiance: torch.Tensor,
+                          norm_hit_dist: torch.Tensor) -> torch.Tensor:
+    """REBLUR_FrontEnd_PackRadianceAndNormHitDist (nrd.glsl): YCoCg
+    radiance and the hit distance. 0 is the "no data" hit distance, so
+    other values are floored at ``NRD_FP16_MIN``."""
+    hd = torch.where(norm_hit_dist != 0.0,
+                     torch.clamp(norm_hit_dist, min=NRD_FP16_MIN),
+                     norm_hit_dist)
+    return torch.cat([linear_to_ycocg(radiance), hd[..., None]], dim=-1)
+
+
+def unpack_radiance_hitdist(data: torch.Tensor):
+    """REBLUR_BackEnd_UnpackRadianceAndNormHitDist: (radiance, hit dist)."""
+    return ycocg_to_linear(data[..., :3]), data[..., 3]
+
+
+def pack_normal_roughness(normal: torch.Tensor, roughness,
+                          material_id) -> torch.Tensor:
+    """NRD_FrontEnd_PackNormalAndRoughness, R10G10B10A2 flavour: (oct.x,
+    oct.y, roughness, materialID / 3)."""
+    oct_n = encode_oct_normal(normal)
+    shape = oct_n.shape[:-1]
+    r = torch.broadcast_to(torch.as_tensor(
+        roughness, dtype=torch.float32, device=oct_n.device), shape)
+    m = torch.clamp(torch.as_tensor(material_id, dtype=torch.float32,
+                                    device=oct_n.device) / 3.0, 0.0, 1.0)
+    m = torch.broadcast_to(m, shape)
+    return torch.cat([oct_n, r[..., None], m[..., None]], dim=-1)
+
+
+def unpack_normal_roughness(p: torch.Tensor):
+    """(normal, roughness, materialID / 3) of :func:`pack_normal_roughness`."""
+    return decode_oct_normal(p[..., :2]), p[..., 2], p[..., 3]

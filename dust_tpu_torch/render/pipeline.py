@@ -33,9 +33,10 @@ the denoiser do not exist: the primary+shadow frame. Traces go through
 ``traversal_backend``: ``"pallas"``, the HDDA kernel
 (:mod:`dust_tpu_torch.ops.hdda`; ``DUST_PALLAS_SCENE=loop`` takes its
 per-instance route), or ``"jnp"``, the eager torch wavefront
-(:mod:`dust_tpu_torch.ops.traverse`), which has no kernel. Non-palette
-``instance_materials`` raise ``NotImplementedError`` naming their
-ROADMAP item. The slices of the working set and the pool are chosen on
+(:mod:`dust_tpu_torch.ops.traverse`), which has no kernel. Registered
+``instance_materials`` (:mod:`dust_tpu_torch.render.materials`) refine
+the primary hits' shading, and their emission joins the direct
+channel. The slices of the working set and the pool are chosen on
 the host from the Python ``frame_index``, so the frame branches on no
 tensor's value.
 """
@@ -89,15 +90,11 @@ class FrameState:
 
 
 def _check_settings(settings: RenderSettings):
-    """The settings this port covers; the rest name their ROADMAP item."""
+    """Refuses a traversal backend or shadow mode that does not exist."""
     if settings.traversal_backend not in ("pallas", "jnp"):
         raise ValueError(f"traversal_backend={settings.traversal_backend!r}")
     if settings.shadow_mode not in ("reference", "precise"):
         raise ValueError(f"shadow_mode={settings.shadow_mode!r}")
-    if settings.instance_materials:
-        raise NotImplementedError(
-            "not ported yet: non-palette instance_materials (Queue 1, "
-            "'Materials registry'; see ROADMAP.md)")
 
 
 def _half_res(settings: RenderSettings) -> bool:

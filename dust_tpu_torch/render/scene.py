@@ -31,6 +31,7 @@ from dust_tpu_torch.vox.loader import VoxScene
 from dust_tpu_torch.ops.hdda import build_hdda_tables, stack_tables
 
 __all__ = ["DeviceScene", "build_device_scene", "scene_from_numpy",
+           "splice_model", "apply_leaf_patch", "patch_gi_albedo",
            "leaf_layout", "material_layout", "pad_rows_past_dead_zone",
            "chebyshev_distance_field", "cell_info_grid"]
 
@@ -332,3 +333,138 @@ def scene_from_numpy(fields: dict, meta: dict, device) -> DeviceScene:
         leaf_cap=tuple(int(c) for c in meta["leaf_cap"]),
         gi_cell_cap=tuple(int(c) for c in meta["gi_cell_cap"]),
     )
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``. To a CUDA device it goes through pinned
+    memory, queued on the current stream: no host sync (a copy from
+    pageable memory would wait for the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _set(t: torch.Tensor, index, value) -> torch.Tensor:
+    """A copy of ``t`` with ``t[index] = value`` (the scene a refit
+    replaces stays as it was)."""
+    out = t.clone()
+    out[index] = value
+    return out
+
+
+def _packed_words(palette: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """Packed material words R | G<<8 | B<<16 | palette_idx<<24 (int32
+    bits) of the palette indices ``idx``."""
+    rgba8 = palette[idx].astype(np.uint32)
+    return (rgba8[:, 0] | (rgba8[:, 1] << 8) | (rgba8[:, 2] << 16)
+            | (idx.astype(np.uint32) << 24)).view(np.int32)
+
+
+def splice_model(device: DeviceScene, slot: int, geo, mat_cap: int,
+                 palette: np.ndarray) -> DeviceScene | None:
+    """Incremental refit: a scene with ONE model's rows replaced in every
+    per-model table and its segment of the flat voxel rows, every other
+    model's rows untouched (the BLAS refit, ``accel_struct/blas.rs:125``).
+
+    ``mat_cap``: the capacity of the model's segment of the material pool
+    as the scene was built (:func:`material_layout`); ``palette`` the
+    (256, 4) uint8 palette. Returns None when the rebuilt model no
+    longer fits the scene's padding (leaf rows, mask chunks or material
+    capacity); the caller then rebuilds the whole scene. The refusals are the
+    reference's, so every edit takes the reference's tier."""
+    lmax = device.mask_lo.shape[1]
+    lcap = device.leaf_cap[slot]
+    CL = device.hdda_mask.shape[1] // 1024
+    L = geo.num_blocks
+    n_mats = len(geo.materials)
+    if L > lmax or L > lcap or n_mats > mat_cap:
+        return None
+    tables = build_hdda_tables(geo.flat)
+    # The reference bakes each model's real chunk count into its kernel;
+    # a model that crosses a 1024-leaf chunk boundary is rebuilt there,
+    # and so here.
+    if tables.mask_chunks > min(CL, device.hdda_chunks[slot]):
+        return None
+
+    ml = np.zeros(lmax, dtype=np.uint32)
+    mh = np.zeros(lmax, dtype=np.uint32)
+    org = np.zeros((lmax, 3), dtype=np.int32)
+    mp = np.zeros(lmax, dtype=np.int32)
+    alb = np.zeros(lmax, dtype=np.uint32)
+    ml[:L] = geo.flat.mask_lo
+    mh[:L] = geo.flat.mask_hi
+    org[:L] = geo.flat.leaf_origin
+    mp[:L] = geo.flat.material_ptr
+    alb[:L] = geo.avg_albedo
+
+    seg = np.zeros(mat_cap, dtype=np.int32)
+    seg[:n_mats] = geo.materials.astype(np.int32)
+    # Voxel rows index the model's own material words.
+    va = _build_voxel_attr(ml[:lcap], mh[:lcap],
+                           np.where((ml | mh)[:lcap], mp[:lcap], 0),
+                           _packed_words(palette, seg))
+
+    if L:
+        abmin = geo.flat.leaf_origin.min(axis=0).astype(np.float32)
+        abmax = (geo.flat.leaf_origin.max(axis=0) + 4.0).astype(np.float32)
+    else:
+        abmin = np.zeros(3, np.float32)
+        abmax = np.full(3, 256.0, np.float32)
+    mask = np.zeros((CL * 1024, 2), np.int32)
+    mask[:tables.mask.shape[0]] = tables.mask
+
+    dev = device.device
+    rows = {
+        "cell_info": cell_info_grid(geo.flat.leaf_grid),
+        "mask_lo": ml.view(np.int32), "mask_hi": mh.view(np.int32),
+        "leaf_origin": org, "avg_albedo": alb.view(np.int32),
+        "model_aabb_min": abmin, "model_aabb_max": abmax,
+        "hdda_l1": tables.l1, "hdda_l2": tables.l2, "hdda_mask": mask,
+    }
+    repl = {name: _set(getattr(device, name), slot, _upload(a, dev))
+            for name, a in rows.items()}
+    r0 = device.leaf_base[slot]
+    repl["voxel_attr"] = _set(device.voxel_attr,
+                              slice(r0 * 4, (r0 + lcap) * 4), _upload(va, dev))
+    return dataclasses.replace(device, **repl)
+
+
+def apply_leaf_patch(device: DeviceScene, model, row, mask_lo, mask_hi, alb,
+                     vox) -> DeviceScene:
+    """Leaf-granular patch (the SceneEditor's fast path): K edited leaves'
+    rows scattered into every per-leaf table: ``model``/``row`` (K,) the
+    leaves, ``mask_lo``/``mask_hi``/``alb`` (K,) their uint32 words,
+    ``vox`` (K, 4, 16) their voxel rows. The leaf set is unchanged, so the
+    cell grid, the HDDA L1/L2 tables and the AABBs stay. Every index
+    comes from the host: nothing is read back from the device."""
+    dev = device.device
+    model = np.asarray(model, np.int64)
+    row = np.asarray(row, np.int64)
+    flat = np.asarray(device.leaf_base, np.int64)[model] + row
+    at = (_upload(model, dev), _upload(row, dev))
+    lo = _upload(np.asarray(mask_lo, np.uint32).view(np.int32), dev)
+    hi = _upload(np.asarray(mask_hi, np.uint32).view(np.int32), dev)
+    vrows = (flat[:, None] * 4 + np.arange(4)).reshape(-1)
+    return dataclasses.replace(
+        device,
+        mask_lo=_set(device.mask_lo, at, lo),
+        mask_hi=_set(device.mask_hi, at, hi),
+        avg_albedo=_set(device.avg_albedo, at, _upload(
+            np.asarray(alb, np.uint32).view(np.int32), dev)),
+        voxel_attr=_set(device.voxel_attr, _upload(vrows, dev), _upload(
+            np.asarray(vox, np.int32).reshape(-1, 16), dev)),
+        hdda_mask=_set(device.hdda_mask, at, torch.stack([lo, hi], dim=-1)))
+
+
+def patch_gi_albedo(table: torch.Tensor, rows, words) -> torch.Tensor:
+    """A copy of the (R, 3) dense-GI ``table`` whose albedo words at the
+    host indices ``rows`` are ``words`` (int32 bits). Rows < 0 are padding
+    and are dropped here, on the host: as an index, -1 would write the
+    last row."""
+    r = np.asarray(rows, np.int64).reshape(-1)
+    keep = r >= 0
+    if not keep.any():
+        return table
+    return _set(table, (_upload(r[keep], table.device), 2), _upload(
+        np.asarray(words, np.int32).reshape(-1)[keep], table.device))

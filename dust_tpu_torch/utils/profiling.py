@@ -1,0 +1,93 @@
+"""Tracing and profiling utilities (port of :mod:`dust_tpu.utils.profiling`).
+
+Reference mapping: ``tracing`` spans and GPU debug labels become
+``torch.profiler`` traces with named ranges; the frame-time diagnostics
+(``FrameTimeDiagnosticsPlugin``) become :class:`FrameDiagnostics`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import time
+
+import torch
+
+__all__ = ["device_sync", "FrameDiagnostics", "trace_annotation",
+           "start_trace", "stop_trace"]
+
+log = logging.getLogger("dust_tpu_torch")
+
+
+def device_sync(x: torch.Tensor) -> float:
+    """Block until ``x`` is computed; returns its checksum (the sum of its
+    finite values, as float32). Reading the sum back synchronises."""
+    x = x.float()
+    return float(torch.where(torch.isfinite(x), x, 0.0).sum())
+
+
+class FrameDiagnostics:
+    """Rolling frame-time statistics (logged every ``report_every``
+    frames)."""
+
+    def __init__(self, report_every: int = 60):
+        self.report_every = report_every
+        self._times: list[float] = []
+        self._last = None
+
+    def frame(self, sync_value=None) -> None:
+        now = time.perf_counter()
+        if sync_value is not None:
+            device_sync(sync_value)
+            now = time.perf_counter()
+        if self._last is not None:
+            self._times.append(now - self._last)
+            if len(self._times) >= self.report_every:
+                dts = self._times
+                avg = sum(dts) / len(dts)
+                log.info(
+                    "frame time avg %.2f ms (min %.2f / max %.2f) — %.1f fps",
+                    avg * 1e3, min(dts) * 1e3, max(dts) * 1e3, 1.0 / avg,
+                )
+                self._times = []
+        self._last = now
+
+
+@contextlib.contextmanager
+def trace_annotation(name: str):
+    """A named range in the trace that :func:`start_trace` writes (the
+    analog of vkCmdBeginDebugUtilsLabelEXT, rhyolite/src/debug.rs:226-301)."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+_PROFILER = None
+_LOG_DIR = None
+
+
+def start_trace(log_dir: str) -> None:
+    """Start tracing the host and, where there is one, the CUDA device;
+    :func:`stop_trace` writes the Chrome trace into ``log_dir``."""
+    global _PROFILER, _LOG_DIR
+    if _PROFILER is not None:
+        raise RuntimeError("a trace is already running")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    _PROFILER = torch.profiler.profile(activities=activities)
+    _PROFILER.start()
+    _LOG_DIR = log_dir
+
+
+def stop_trace() -> str:
+    """Stop the trace; returns the path of the Chrome trace it wrote."""
+    global _PROFILER
+    if _PROFILER is None:
+        raise RuntimeError("no trace is running")
+    prof, _PROFILER = _PROFILER, None
+    prof.stop()
+    path = os.path.join(_LOG_DIR, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    return path

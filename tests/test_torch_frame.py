@@ -142,15 +142,15 @@ def test_frame_runs_six_traces(frames, monkeypatch):
                      "rough"]
 
 
-# The eager backend, precise shadows and the full-resolution denoise
-# render now (tests/test_torch_branches.py); non-palette materials are
-# the one setting still to port.
+# Every setting renders now (tests/test_torch_branches.py,
+# tests/test_torch_materials.py); a material type that nobody registered
+# raises, as in the reference.
 @pytest.mark.parametrize("change", [
-    pytest.param(dict(instance_materials=(1,)), id="change3"),
+    pytest.param(dict(instance_materials=(7,)), id="change3"),
 ])
 def test_unported_settings_raise(frames, change):
     ts, tc, tsk, tbn = frames["scenes"]
     s = dataclasses.replace(SETTINGS, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="not registered"):
         st = tpipe.make_frame_state(SETTINGS, ts, "cpu")
         tpipe.render_frame(ts, st, tc, tsk, tbn.unitvec3_cosine, tbn.scalar, s)
