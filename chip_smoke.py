@@ -88,7 +88,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    at 256x144 card vs CPU RMSE < 0.01, the teapot's pixels brighter);
    a checkpoint saved after frame 2 and loaded into a fresh state on the
    card renders frame 3 equal to the run that never stopped; and the
-   isolated refit tiers' latencies (bench_edits' default mode).
+   isolated refit tiers' latencies (bench_edits' default mode);
+18. the ray-sharded flythrough (BASELINE config #5: 3840x2160, the
+   camera orbiting) through render_frame with a mesh on a one-rank NCCL
+   group (dust_tpu_torch/parallel): the scene kernel held against its
+   plain version on 65,536 of each mode's sharded rays (torch.equal),
+   the sun's two launches (ao_threshold, rough; the sharded route takes
+   no fused ao_fg) timed against the unsharded frame's ao_fg launch,
+   then 4 frames with 7 scene-kernel launches each, a finite, non-black
+   image, ms/frame and Mrays/s, and the collectives per frame and the
+   bytes they leave on the rank; each frame against the unsharded frame
+   from the same state (isclose 1e-3 on more than 99.9% of the values),
+   the unsharded frames timed in the same call; then the dry run's four
+   gates on one rank of the card (python -m
+   dust_tpu_torch.parallel.dryrun --ranks 1 --device cuda).
 
 Every config is built and rendered through the bench module
 (dust_tpu_torch/bench.py). Before the result it prints each scene-kernel
@@ -129,6 +142,9 @@ SCENE_LAUNCHES = {"precise": 1, "ao_fg": 1, "ao_threshold": 1, "rough": 3}
 NO_GI_LAUNCHES = {"precise": 1, "ao_fg": 1, "ao_threshold": 0, "rough": 0}
 PRECISE_LAUNCHES = {"precise": 2, "ao_fg": 0, "ao_threshold": 1, "rough": 3}
 NO_LAUNCHES = {"precise": 0, "ao_fg": 0, "ao_threshold": 0, "rough": 0}
+# The ray-sharded GI frame: reference-mode sun shadows take two launches
+# (ao_threshold, rough) in place of the fused ao_fg.
+SHARDED_LAUNCHES = {"precise": 1, "ao_fg": 0, "ao_threshold": 2, "rough": 4}
 # The eager backend: a 1080p frame over this many seconds is cut to
 # 960x540; the lane-retirement intervals it is timed at.
 EAGER_MAX_S = 10.0
@@ -1033,6 +1049,143 @@ def _edits_phase(hdda, dev, card, reset_counts, rmse):
     return times, launches, loop_launches
 
 
+def _sharded_phase(hdda, dev, card, reset_counts):
+    """Phase 18: the flythrough at 3840x2160 (BASELINE config #5) through
+    render_frame with a mesh, on a one-rank NCCL group on the card, then
+    the dry run's four gates (python -m dust_tpu_torch.parallel.dryrun
+    --ranks 1 --device cuda). Returns (the scene kernel's launches per
+    mode over the sharded frames, a dict of the phase's numbers)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from dust_tpu_torch import bench, parallel
+    from dust_tpu_torch.parallel import dryrun
+    from dust_tpu_torch.render.pipeline import frame_ray_count
+
+    label = "flythrough, sharded"
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.init_process_group(
+            0, 1, dev, store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            mesh = parallel.make_mesh()
+            ctx = _setup(dev, WIDTH_4K, HEIGHT_4K, "flythrough")
+            sh = dict(ctx, scene=parallel.replicate_scene(ctx["scene"], mesh))
+            s = ctx["settings"]
+            rays = frame_ray_count(ctx["scene"], s)
+
+            def sharded(state, f):
+                return bench.render(sh, parallel.shard_frame_state(
+                    state, mesh), f, mesh=mesh)
+
+            # The scene kernel against its plain version on the sharded
+            # launches' real rays, and the sun's two launches (the 7th
+            # launch) against the unsharded frame's fused ao_fg launch.
+            calls = {"sharded": [], "unsharded": []}
+
+            def keep(into):
+                return lambda a, kw: into.append(
+                    (kw["mode"], a + (kw.get("t_ao"),)))
+
+            _recording(hdda, "hdda", keep(calls["sharded"]),
+                       lambda: sharded(ctx["state"], 0))
+            _recording(hdda, "hdda", keep(calls["unsharded"]),
+                       lambda: bench.render(ctx, ctx["state"], 0))
+            torch.cuda.synchronize()
+            modes = [m for m, _ in calls["sharded"]]
+            if modes != ["precise", "ao_threshold", "rough", "ao_threshold",
+                         "rough", "rough", "rough"]:
+                raise SystemExit(f"{label}: launch order {modes}")
+            seen = set()
+            for mode, full in calls["sharded"]:
+                if mode in seen:
+                    continue
+                seen.add(mode)
+                _hold(f"{label} hdda_scene {mode}",
+                      lambda a, m=mode: hdda.hdda(*a[:11], t_ao=a[11], mode=m),
+                      lambda a, m=mode: hdda.hdda_plain(*a[:12], mode=m),
+                      full, 7, 0, timed=False)
+
+            def launch_ms(mode, a):
+                return _kernel_ms(lambda: hdda.hdda(*a[:11], t_ao=a[11],
+                                                    mode=mode))
+
+            sun_pair = [launch_ms(*c) for c in calls["sharded"][1:3]]
+            fused = launch_ms(*calls["unsharded"][1])
+            print(f"{label}: sun shadows in two launches ao_threshold "
+                  f"{sun_pair[0]:.3f} ms + rough {sun_pair[1]:.3f} ms = "
+                  f"{sum(sun_pair):.3f} ms, against the unsharded frame's "
+                  f"fused ao_fg {fused:.3f} ms (+{sum(sun_pair) - fused:.3f} "
+                  f"ms) [{card}]")
+            del calls
+
+            # The path: 4 frames, carrying the sharded state.
+            state = parallel.shard_frame_state(ctx["state"], mesh)
+            reset_counts()
+            mesh.counts.update(calls=0, bytes=0)
+            times, out = [], None
+            for f in range(FRAMES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, _aux, state = bench.render(sh, state, f, mesh=mesh)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            _check_launches(hdda.LAUNCHES, SHARDED_LAUNCHES, FRAMES,
+                            f"{label} hdda_scene")
+            launches = dict(hdda.LAUNCHES)
+            collectives = {k: v / FRAMES for k, v in mesh.counts.items()}
+            img = parallel.gather_image(mesh, out, s.height)
+            _report_frame(label, ctx, img, times, card)
+            ms_sharded = 1e3 * sum(times[1:]) / (FRAMES - 1)
+            print(f"{label}: {collectives['calls']:.0f} collectives per frame "
+                  f"moving {collectives['bytes'] / 1e6:.1f} MB onto the rank "
+                  f"(one rank, NCCL) [{card}]")
+            # One more frame of each under torch.profiler: the device's
+            # busy share.
+            _print_profile(label, None, FRAMES, card, render=lambda: (
+                bench.render(sh, state, FRAMES, mesh=mesh)))
+            _print_profile("flythrough, unsharded", None, FRAMES, card,
+                           render=lambda: bench.render(ctx, ctx["state"],
+                                                       FRAMES))
+
+            # Each frame against the unsharded frame from the same state
+            # and camera; the unsharded frames carry the state and are
+            # timed.
+            state, u_times, agree = ctx["state"], [], []
+            for f in range(FRAMES):
+                img_s, _aux, _st = sharded(state, f)
+                img_s = parallel.gather_image(mesh, img_s, s.height)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img_u, _aux, state = bench.render(ctx, state, f)
+                torch.cuda.synchronize()
+                u_times.append(time.perf_counter() - t0)
+                agree.append(float(torch.isclose(
+                    img_s, img_u, rtol=1e-3, atol=1e-3).float().mean()))
+            print(f"{label} vs unsharded, frames 0-{FRAMES - 1} from the same "
+                  f"states: isclose on {', '.join(f'{a:.6f}' for a in agree)} "
+                  f"of values")
+            if min(agree) <= dryrun.GATE:
+                raise SystemExit(f"{label}: sharded and unsharded frames "
+                                 f"differ ({min(agree):.6f} isclose)")
+            ms_unsharded = 1e3 * sum(u_times[1:]) / (FRAMES - 1)
+            print(f"{label}: {ms_sharded:.2f} ms/frame "
+                  f"({rays / (ms_sharded * 1e3):.1f} Mrays/s) against the "
+                  f"unsharded flythrough's {ms_unsharded:.2f} ms/frame "
+                  f"({rays / (ms_unsharded * 1e3):.1f} Mrays/s) [{card}]")
+        finally:
+            dist.destroy_process_group()
+
+    # The dry run's four gates on one rank of the card.
+    if dryrun.main(["--ranks", "1", "--device", "cuda"]) != 0:
+        raise SystemExit("dryrun --ranks 1 --device cuda failed")
+    return launches, dict(
+        ms=ms_sharded, unsharded_ms=ms_unsharded,
+        collectives_per_frame=collectives["calls"],
+        collective_bytes_per_frame=collectives["bytes"],
+        sun_two_launches_ms=sun_pair, ao_fg_ms=fused, isclose=agree)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1236,6 +1389,10 @@ def main() -> int:
     edit_times, edit_launches, loop_launches = _edits_phase(
         hdda, dev, card, reset_counts, rmse)
 
+    # ---- 18. the ray-sharded 4K flythrough on a one-rank NCCL group ----
+    by_path["flythrough-sharded"], sharded = _sharded_phase(
+        hdda, dev, card, reset_counts)
+
     for k in kernels:
         if k["name"].startswith("hdda_scene<"):
             mode = k["name"][len("hdda_scene<"):-1]
@@ -1261,7 +1418,7 @@ def main() -> int:
             k["launches_by_path"] = {"stress": k["launches"],
                                      "edits loop": loop_launches[mode]}
     print(json.dumps({"eager_backend": eager, "gates": gates,
-                      "edits": edit_times}))
+                      "edits": edit_times, "flythrough_sharded": sharded}))
     for mode in hdda.MODES:
         h = stress_held[mode]
         print(f"stress hdda_scene<{mode}>: {h['ms']:.3f} ms per launch at "

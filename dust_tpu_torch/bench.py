@@ -181,9 +181,12 @@ def camera_for(ctx, frame: int):
         s.camera.near, s.camera.far, s.width, s.height, ctx["device"])
 
 
-def render(ctx, state, frame: int = 0, return_aux: bool = False):
+def render(ctx, state, frame: int = 0, return_aux: bool = False,
+           mesh=None):
     """Frame ``frame`` from ``state``: the teapot moved, on flythrough
-    the camera too. Returns (output, aux, new state)."""
+    the camera too. Returns (output, aux, new state). ``mesh``: the
+    ray-sharded frame (``render_frame``'s), from a replicated
+    ``ctx["scene"]`` and a sharded ``state``."""
     from dust_tpu_torch.render.pipeline import render_frame
     from dust_tpu_torch.vox import procgen
 
@@ -197,7 +200,7 @@ def render(ctx, state, frame: int = 0, return_aux: bool = False):
     bn = ctx["bn"]
     return render_frame(scene, state, cam, ctx["sky"], bn.unitvec3_cosine,
                         bn.scalar, ctx["settings"], tile=args.tile,
-                        return_aux=return_aux)
+                        return_aux=return_aux, mesh=mesh)
 
 
 def main(argv=None) -> int:

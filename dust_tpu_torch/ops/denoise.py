@@ -212,10 +212,12 @@ def upsample_bilateral(img_half, hd_half, depth_half, normal_half,
     return out, hd
 
 
-def _shift(a, sy: int, sx: int):
-    """Edge-clamped 2D shift: out[y, x] = a[clamp(y - sy), clamp(x - sx)]."""
+def _shift(a, sy: int, sx: int, lo: int = 0, hi: int | None = None):
+    """Edge-clamped 2D shift of the rows [lo, hi) (default: all):
+    out[y, x] = a[clamp(y - sy), clamp(x - sx)]."""
     h, w = a.shape[:2]
-    ys = torch.clamp(torch.arange(h, device=a.device) - sy, 0, h - 1)
+    hi = h if hi is None else hi
+    ys = torch.clamp(torch.arange(lo, hi, device=a.device) - sy, 0, h - 1)
     xs = torch.clamp(torch.arange(w, device=a.device) - sx, 0, w - 1)
     return a[ys][:, xs]
 
@@ -234,9 +236,25 @@ def _powi(x, n: int):
 
 
 def denoise(state: DenoiserState, radiance, hitdist, depth, normal,
-            world_pos, motion, prev_view_proj, settings: DenoiserSettings):
-    """One denoiser step. Returns (denoised_rgb, hitdist, new_state)."""
-    height, width = depth.shape
+            world_pos, motion, prev_view_proj, settings: DenoiserSettings,
+            rows=None):
+    """One denoiser step. Returns (denoised_rgb, hitdist, new_state).
+
+    ``rows``: the sharded frame's ``(lo, hi, gather)``: the step computes
+    the image rows [lo, hi) alone. ``state`` then holds those rows of the
+    history, ``radiance`` the rows [max(lo - 1, 0), min(hi + 1, H)) (the
+    3×3 moments read one row around), every other input the rows [lo,
+    hi), and ``gather(x)`` returns the whole image from every rank's rows
+    ``x``; so do the results. The history fetch reads any row under
+    camera motion and the à-trous step 2^k rows 2^k away: each reads a
+    gathered image."""
+    if rows is None:
+        lo, hi, gather = 0, depth.shape[0], None
+        history = state.history
+    else:
+        lo, hi, gather = rows
+        history = gather(state.history)
+    height, width = history.shape[0], depth.shape[1]
     valid_px = torch.isfinite(depth)
 
     # ---- temporal reprojection -----------------------------------------
@@ -245,7 +263,7 @@ def denoise(state: DenoiserState, radiance, hitdist, depth, normal,
     in_bounds = ((prev_xy[..., 0] >= 0.5) & (prev_xy[..., 0] <= width - 0.5)
                  & (prev_xy[..., 1] >= 0.5) & (prev_xy[..., 1] <= height - 0.5)
                  & (prev_w > 0))
-    corners, fx, fy = _fetch_history(state.history, prev_xy)
+    corners, fx, fy = _fetch_history(history, prev_xy)
     wb = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
 
     wsum = torch.zeros_like(fx)
@@ -272,6 +290,8 @@ def denoise(state: DenoiserState, radiance, hitdist, depth, normal,
 
     # ---- history clamping ------------------------------------------------
     mu, sigma = _local_moments(radiance)
+    own = slice(lo - max(lo - 1, 0), hi - max(lo - 1, 0))
+    mu, sigma, radiance = mu[own], sigma[own], radiance[own]
     gamma = settings.clamp_sigma
     clamped = torch.clamp(hist_color, mu - gamma * sigma, mu + gamma * sigma)
     hist_color = torch.where(valid_hist[..., None], clamped, hist_color)
@@ -321,8 +341,10 @@ def denoise(state: DenoiserState, radiance, hitdist, depth, normal,
         inv_lum_sig = 1.0 / (settings.luminance_sigma * conv * hd_norm + 1e-3)
         guide = torch.cat([filtered, lum_f[..., None], depth_s[..., None],
                            normal, valid_f[..., None]], dim=-1)  # (H, W, 9)
+        if gather is not None:
+            guide = gather(guide)
         for dy, dx, kw in kernel:
-            g_q = _shift(guide, -dy * step, -dx * step)
+            g_q = _shift(guide, -dy * step, -dx * step, lo, hi)
             c_q, l_q, d_q = g_q[..., 0:3], g_q[..., 3], g_q[..., 4]
             n_q, v_q = g_q[..., 5:8], g_q[..., 8]
             log_w = (-(depth_s - d_q).abs() / torch.clamp(depth_s, min=1.0)

@@ -25,7 +25,8 @@ from dust_tpu_torch.render.scene import pad_rows_past_dead_zone
 
 __all__ = ["DenseGICache", "make_dense_gi_cache", "dense_rows", "dense_cells",
            "cell_layout", "padded_cells", "dense_index", "dense_get",
-           "dense_update", "dense_update_slice", "pack_working_set",
+           "dense_update", "dense_update_slice", "dense_update_rows",
+           "pack_working_set",
            "pack_working_set_rows", "refresh_dense_albedo",
            "MAX_SAMPLE_COUNT"]
 
@@ -97,14 +98,17 @@ def make_dense_gi_cache(scene) -> DenseGICache:
     return DenseGICache(table=torch.stack([zeros, zeros, alb6], dim=-1))
 
 
-def refresh_dense_albedo(cache: DenseGICache, scene) -> DenseGICache:
+def refresh_dense_albedo(cache: DenseGICache, scene,
+                         rows: slice = slice(None)) -> DenseGICache:
     """Every row's albedo word rebuilt from a (refitted) scene, the
     accumulated radiance kept. An edit reorders the edited model's leaf
     rows, so their radiance is keyed to the old order until the running
     mean re-converges, as the reference's spatial hash goes stale on
-    edits."""
+    edits. ``rows``: the rows of the scene's table that ``cache`` holds
+    (a rank's chunk under a mesh)."""
     return DenseGICache(table=torch.stack(
-        [cache.table[:, 0], cache.table[:, 1], _albedo_words(scene)], dim=-1))
+        [cache.table[:, 0], cache.table[:, 1], _albedo_words(scene)[rows]],
+        dim=-1))
 
 
 def pack_working_set_rows(radiance, count, albedo_col) -> torch.Tensor:
@@ -175,4 +179,21 @@ def dense_update_slice(cache: DenseGICache, start: int, value,
                        value, valid)
     table = cache.table.clone()
     table[start:start + n] = sub.table
+    return DenseGICache(table=table)
+
+
+def dense_update_rows(cache: DenseGICache, row0: int, start: int, value,
+                      valid) -> DenseGICache:
+    """:func:`dense_update_slice` on a chunk of the table: ``cache`` holds
+    the global rows [row0, row0 + len), and of the window [start, start +
+    len(value)) it updates the rows it holds (the sharded frame's
+    budgeted refresh, where the window crosses the ranks' chunks)."""
+    rows = cache.table.shape[0]
+    a, b = max(start, row0), min(start + value.shape[0], row0 + rows)
+    if a >= b:
+        return cache
+    sub = dense_update(DenseGICache(table=cache.table[a - row0:b - row0]),
+                       value[a - start:b - start], valid[a - start:b - start])
+    table = cache.table.clone()
+    table[a - row0:b - row0] = sub.table
     return DenseGICache(table=table)

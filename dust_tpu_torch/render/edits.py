@@ -27,6 +27,12 @@ the touched rows' albedo words, a splice refreshes every albedo word
 count, re-creates the cache empty. The hash frame's persistent working
 set (``gi_ws``) is keyed the same way and follows the same rules.
 
+Under a mesh (``SceneEditor(..., mesh=mesh)``, the ray-sharded frame of
+:mod:`dust_tpu_torch.parallel`) every rank makes the same edits, so the
+host build is the same on every rank; the dense table is row-sharded, so
+each rank patches and refreshes only the rows it holds, and after a
+splice or a rebuild the scene is broadcast again from rank 0.
+
 Every device upload and scatter runs on the caller's thread; the staged
 refit (:meth:`SceneEditor.refit_async`) runs only the host geometry
 build on a worker thread.
@@ -39,6 +45,7 @@ import threading
 
 import numpy as np
 
+from dust_tpu_torch import parallel
 from dust_tpu_torch.ops import gi_cache as gilib
 from dust_tpu_torch.render.scene import (DeviceScene, apply_leaf_patch,
                                          build_device_scene, material_layout,
@@ -56,9 +63,11 @@ class SceneEditor:
     """Holds editable host state for a loaded scene and refits the device
     scene after voxel mutations."""
 
-    def __init__(self, vox_scene: VoxScene, device_scene: DeviceScene):
+    def __init__(self, vox_scene: VoxScene, device_scene: DeviceScene,
+                 mesh: parallel.Mesh | None = None):
         self.vox_scene = vox_scene
         self.device = device_scene
+        self.mesh = mesh
         self._model_ids = sorted(vox_scene.geometries)
         # Editable voxel state per model: coords (N, 3) and palette
         # indices (N,) decoded from the flat pools, plus an overlay of
@@ -167,23 +176,36 @@ class SceneEditor:
             return fast
         if frame_state is None:
             return self._refit()
+        rows_before = gilib.dense_rows(self.device)
         device = self._refit()
-        return device, self._refresh_state(frame_state, device)
+        return device, self._refresh_state(frame_state, device, rows_before)
 
-    def _refresh_state(self, frame_state, device):
+    def _gi_rows(self, rows: int) -> slice:
+        """The rows of a dense table of ``rows`` that this process holds:
+        its chunk under a mesh, else all."""
+        if self.mesh is None:
+            return slice(0, rows)
+        return slice(*parallel.ray_sharding(self.mesh, rows))
+
+    def _refresh_state(self, frame_state, device, rows_before: int):
         """Re-key a FrameState's dense GI tables after a splice or
-        rebuild."""
-        def refreshed(cache):
-            if cache.table.shape[0] == gilib.dense_rows(device):
-                return gilib.refresh_dense_albedo(cache, device)
-            return gilib.make_dense_gi_cache(device)  # the row count changed
+        rebuild (from a scene of ``rows_before`` dense rows)."""
+        rows = gilib.dense_rows(device)
+
+        def refreshed(cache, held):
+            if rows_before == rows:
+                return gilib.refresh_dense_albedo(cache, device, held)
+            # The row count changed.
+            return gilib.DenseGICache(
+                table=gilib.make_dense_gi_cache(device).table[held])
 
         if isinstance(frame_state.gi, gilib.DenseGICache):
             frame_state = dataclasses.replace(
-                frame_state, gi=refreshed(frame_state.gi))
+                frame_state, gi=refreshed(frame_state.gi, self._gi_rows(rows)))
         if frame_state.gi_ws is not None:
             frame_state = dataclasses.replace(
-                frame_state, gi_ws=refreshed(frame_state.gi_ws))
+                frame_state, gi_ws=refreshed(frame_state.gi_ws,
+                                             slice(0, rows)))
         return frame_state
 
     def refit_async(self, frame_state=None):
@@ -253,12 +275,13 @@ class SceneEditor:
             raise error
         for mid in self._worker_dirty:
             self.vox_scene.geometries[mid] = self._worker_out[mid]
+        rows_before = gilib.dense_rows(self.device)
         device = self._apply_splice(self._worker_dirty)
         self._worker_dirty = []
         self._worker_out = {}
         if frame_state is None:
             return device
-        return device, self._refresh_state(frame_state, device)
+        return device, self._refresh_state(frame_state, device, rows_before)
 
     def _try_leaf_patch(self, frame_state=None):
         """The leaf tier (BASELINE config #4's per-frame edit): when every
@@ -374,9 +397,13 @@ class SceneEditor:
         # the dense cache (the hash table itself is keyed by world cells
         # and needs no refresh).
         if dense:
+            # Under a mesh the table holds the rows of this rank's chunk.
+            held = self._gi_rows(gilib.dense_rows(device))
+            mine = (gi_rows >= held.start) & (gi_rows < held.stop)
             frame_state = dataclasses.replace(
-                frame_state, gi=gilib.DenseGICache(
-                    table=patch_gi_albedo(gi.table, gi_rows, gi_alb)))
+                frame_state, gi=gilib.DenseGICache(table=patch_gi_albedo(
+                    gi.table, np.where(mine, gi_rows - held.start, -1),
+                    gi_alb)))
         if ws is not None:
             frame_state = dataclasses.replace(
                 frame_state, gi_ws=gilib.DenseGICache(
@@ -421,8 +448,8 @@ class SceneEditor:
                 break
         if device is not None:
             self.last_refit_mode = "splice"
-            self.device = device
-            return device
+            self.device = self._replicated(device)
+            return self.device
 
         self.last_refit_mode = "rebuild"
         new = build_device_scene(self.vox_scene, self.device.device)
@@ -433,5 +460,11 @@ class SceneEditor:
         # Re-pin the material layout to the rebuilt pool.
         geos = [self.vox_scene.geometries[m] for m in self._model_ids]
         _, self._mat_cap = material_layout(geos)
-        self.device = new
-        return new
+        self.device = self._replicated(new)
+        return self.device
+
+    def _replicated(self, device: DeviceScene) -> DeviceScene:
+        """Under a mesh, the scene broadcast again from rank 0."""
+        if self.mesh is None:
+            return device
+        return parallel.replicate_scene(device, self.mesh)

@@ -48,6 +48,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from dust_tpu_torch import parallel
 from dust_tpu_torch.config import RenderSettings
 from dust_tpu_torch.ops import camera as cameralib
 from dust_tpu_torch.ops import denoise as denoiselib
@@ -271,15 +272,61 @@ def _working_set(scene, state: FrameState, settings: RenderSettings,
     return gilib.pack_working_set(rad, cnt, scene), state.gi_ws
 
 
+def _gather_trace(mesh, res: traverse.TraceResult,
+                  length: int) -> traverse.TraceResult:
+    """Every rank's trace results of an axis of ``length``, in order (one
+    all-gather of t's bits beside the three int32 fields)."""
+    w = parallel.gather_rows(mesh, torch.stack(
+        [res.t.view(torch.int32), res.inst, res.row, res.bit], dim=-1),
+        length)
+    return traverse.TraceResult(t=w[:, 0].contiguous().view(torch.float32),
+                                inst=w[:, 1], row=w[:, 2], bit=w[:, 3])
+
+
+def _gather_columns(mesh, chans: dict, length: int) -> dict:
+    """Every rank's rows of per-ray ``chans`` (float32 or int32 tensors
+    with a leading ray axis of the rank's chunk of ``length``), in one
+    all-gather."""
+    flat = [v.reshape(v.shape[0], -1) for v in chans.values()]
+    packed = torch.cat([f.view(torch.float32) if f.dtype == torch.int32
+                        else f.float() for f in flat], dim=-1)
+    whole = parallel.gather_rows(mesh, packed, length)
+    out, k = {}, 0
+    for (name, v), f in zip(chans.items(), flat):
+        w = whole[:, k:k + f.shape[1]]
+        k += f.shape[1]
+        if v.dtype == torch.int32:
+            w = w.contiguous().view(torch.int32)
+        out[name] = w.reshape((length,) + v.shape[1:])
+    return out
+
+
 def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
                  sky_state: skylib.SkyModelState, bn_cosine: torch.Tensor,
                  bn_scalar: torch.Tensor, settings: RenderSettings,
-                 tile: int = 16384, return_aux: bool = True):
+                 tile: int = 16384, return_aux: bool = True, mesh=None):
     """Render one frame. Returns (output_srgb (H, W, 3), aux dict, new
     state). ``bn_cosine``: the (64, 128, 128, 3) cosine blue-noise table;
     ``bn_scalar``: the (64, 128, 128, 1) scalar table (the hash frame's
     enqueue and requeue draws). ``tile``: rays per walk of the ``"jnp"``
-    backend (bounds its memory; no result depends on it)."""
+    backend (bounds its memory; no result depends on it).
+
+    ``mesh`` (:class:`dust_tpu_torch.parallel.Mesh`): the ray-sharded
+    frame. ``scene`` is replicated and ``state`` sharded
+    (:func:`~dust_tpu_torch.parallel.shard_frame_state`); the rank traces
+    its chunk of the rays, in the order they are traced (8×128 tiles on
+    the kernel's backend), and computes its chunk of the image rows
+    (:func:`~dust_tpu_torch.parallel.ray_sharding` over H); the output
+    and the aux images are those rows
+    (:func:`~dust_tpu_torch.parallel.gather_image` assembles them). On the
+    kernel's backend each trace pads the rank's rays to the chunk size
+    with inactive rays, and reference-mode sun shadows take the two
+    launches (ao_threshold, rough) in place of the fused ao_fg, as the
+    reference's sharded frame does (a grazing sun ray may end otherwise
+    than in the fused walk). Besides, only the exposure's float sum (one
+    all-reduce) and, at more than 2 instances, the sweep order (the mean
+    of the rank's ray origins) can round otherwise than in the frame
+    without a mesh."""
     _check_settings(settings)
     H, W = settings.height, settings.width
     n = H * W
@@ -292,19 +339,28 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
     dense = settings.gi_cache == "dense"
     cell_size = settings.spatial_hash.cell_size
     gi = _gi_enabled(settings)
+    sharded = mesh is not None
+    lo, hi = parallel.ray_sharding(mesh, n) if sharded else (0, n)
+    m = hi - lo
 
     def fill(mask, yes, no):
         return torch.where(mask, yes, no).float()
 
-    def trace(o, d, t_min, t_max, mode):
-        if pallas:
+    def trace(o, d, t_min, t_max, mode, length=n):
+        """Trace the rank's rays of an axis of ``length``."""
+        if not pallas:
+            return traverse.trace_scene_tiled(scene, o, d, t_min, t_max,
+                                              mode=mode, tile=tile)
+        if not sharded:
             return hdda.trace_scene(scene, o, d, t_min, t_max, mode)
-        return traverse.trace_scene_tiled(scene, o, d, t_min, t_max,
-                                          mode=mode, tile=tile)
+        k = o.shape[0]
+        res = hdda.trace_scene(scene, *parallel.pad_rays(
+            mesh, length, o, d, t_min, t_max), mode)
+        return traverse.TraceResult(*(x[:k] for x in res))
 
     # -------------------------------------------------- 1. primary
-    dirs = to_tiles(cameralib.camera_ray_dirs(cam, W, H))
-    origins = cam.position.expand(n, 3).contiguous()
+    dirs = to_tiles(cameralib.camera_ray_dirs(cam, W, H))[lo:hi]
+    origins = cam.position.expand(m, 3).contiguous()
     primary = trace(origins, dirs, cam.near, cam.far, "precise")
     g = shade.resolve_hits(scene, primary, origins, dirs)
     g, mat_emissive = apply_materials(g, settings.instance_materials)
@@ -325,11 +381,11 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
         ndl = (normal * sun_dir).sum(dim=-1)
         facing = (ndl > 0.0) & hit
         sthr = settings.ambient_occlusion_threshold
-        sun_rays = sun_dir.expand(n, 3)
+        sun_rays = sun_dir.expand(m, 3)
         s_tmax = fill(facing, 10000.0, -1.0)
         if settings.shadow_mode == "precise":
             occluded = trace(hit_loc, sun_rays, 0.1, s_tmax, "precise").hit
-        elif pallas:
+        elif pallas and not sharded:
             s_ao, s_fg = hdda.trace_scene_ao_fg(
                 scene, hit_loc, sun_rays, 0.1, fill(facing, sthr, -1.0),
                 s_tmax)
@@ -352,7 +408,7 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
     else:
         # ---------------------------------------------- 3. AO + final gather
         cos_sample = to_tiles(noiselib.bn_fetch(
-            bn_cosine, layer, (7, 183), rand, H, W)) * 2.0 - 1.0
+            bn_cosine, layer, (7, 183), rand, H, W))[lo:hi] * 2.0 - 1.0
         gi_dir = pk.rotate_vector_by_normal(normal, cos_sample)
         gi_dir = torch.where(hit[:, None], gi_dir,
                              gi_dir.new_tensor([0.0, 1.0, 0.0]))
@@ -366,6 +422,11 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
 
         if dense:
             gi_reads, new_gi_ws = state.gi, state.gi_ws
+            if sharded:
+                # The rays read any row: one all-gather of the
+                # row-sharded table gives the replicated read view.
+                gi_reads = gilib.DenseGICache(table=parallel.gather_rows(
+                    mesh, state.gi.table, gilib.dense_rows(scene)))
         else:
             gi_reads, new_gi_ws = _working_set(scene, state, settings,
                                                frame_index)
@@ -376,7 +437,7 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
         albedo_lin = colorlib.srgb_eotf(unpack_r10g10b10a2(alb_u32)[:, :3])
         indirect = colorlib.srgb_to_acescg(
             colorlib.acescg_to_srgb(cached) * albedo_lin)
-        illum = torch.zeros((n, 3), device=dev)
+        illum = torch.zeros((m, 3), device=dev)
         if settings.contribution_secondary_spatial_hash:
             illum = illum + torch.where(fg_hit[:, None], indirect, 0.0)
         if settings.contribution_secondary_skylight:
@@ -390,12 +451,17 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
             # ray index % pool size, the lowest index wins.
             p_sched = 1.0 / (cnt + 2.0)
             noise0 = to_tiles(noiselib.bn_fetch(
-                bn_scalar, layer, (34, 21), rand, H, W))[:, 0]
+                bn_scalar, layer, (34, 21), rand, H, W))[lo:hi, 0]
             enqueue = fg_hit & (noise0 > p_sched)
             center_fg = shade.entry_leaf_center(scene, fg, hit_loc, gi_dir)
-            surfels = _pool_enqueue_mod(
-                surfels, enqueue,
-                torch.cat([center_fg, face.float()[:, None]], dim=-1))
+            rows = torch.cat([center_fg, face.float()[:, None]], dim=-1)
+            if sharded:
+                # The pool is replicated: every rank enqueues every
+                # rank's candidates, in the global ray order.
+                both = parallel.gather_rows(mesh, torch.cat(
+                    [enqueue.float()[:, None], rows], dim=-1), n)
+                enqueue, rows = both[:, 0] > 0.0, both[:, 1:]
+            surfels = _pool_enqueue_mod(surfels, enqueue, rows)
         if settings.debug_visualize_spatial_hash:
             # Show the cache: the primary hit cell's cached radiance.
             dbg = shade.leaf_attributes(scene, primary, origins, dirs,
@@ -456,20 +522,36 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
         s_cos = noiselib.bn_fetch_pool(bn_cosine, layer, (16, 47), rand,
                                        p) * 2.0 - 1.0
         s_dir = pk.rotate_vector_by_normal(s_normal, s_cos)
+        # Sharded: the rank traces its chunk of the p surfel rays. Dense
+        # goes on with that chunk (without a budget, its rows are the
+        # rank's rows of the table); the hash pool is replicated, so
+        # every rank gathers every rank's trace results.
+        s_lo, s_hi = parallel.ray_sharding(mesh, p) if sharded else (0, p)
+        if sharded and dense:
+            surfel_pos, surfel_dir, s_valid, s_normal, s_origin, s_dir = (
+                x[s_lo:s_hi] for x in (surfel_pos, surfel_dir, s_valid,
+                                       s_normal, s_origin, s_dir))
 
-        s_payload = torch.zeros((p, 3), device=dev)
+        def trace_surfels(o, d, t_max):
+            if not sharded or dense:
+                return trace(o, d, 0.1, t_max, "rough", length=p)
+            res = trace(o[s_lo:s_hi], d[s_lo:s_hi], 0.1, t_max[s_lo:s_hi],
+                        "rough", length=p)
+            return _gather_trace(mesh, res, p)
+
+        k = s_origin.shape[0]
+        s_payload = torch.zeros((k, 3), device=dev)
         if settings.contribution_secondary_sunlight:
             s_ndl = (s_normal * sun_dir).sum(dim=-1)
             s_facing = (s_ndl > 0.0) & s_valid
-            s_shadow = trace(s_origin, sun_dir.expand(p, 3), 0.1,
-                             fill(s_facing, 10000.0, -1.0), "rough")
+            s_shadow = trace_surfels(s_origin, sun_dir.expand(k, 3),
+                                     fill(s_facing, 10000.0, -1.0))
             s_unocc = s_facing & ~s_shadow.hit
             s_payload = s_payload + torch.where(
                 s_unocc[:, None],
                 strength * torch.clamp(s_ndl, min=0.0)[:, None], 0.0)
 
-        s_res = trace(s_origin, s_dir, 0.1, fill(s_valid, 10000.0, -1.0),
-                      "rough")
+        s_res = trace_surfels(s_origin, s_dir, fill(s_valid, 10000.0, -1.0))
         s_hit = s_valid & s_res.hit
         s_face = shade.entry_face(scene, s_res, s_origin, s_dir)
         s_found, s_cached, s_cnt, s_alb_u32 = gilib.dense_get(
@@ -488,6 +570,14 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
         insert_ok = s_valid & (~s_hit | s_found)
         if dense and slice_start is None:
             new_gi = gilib.dense_update(state.gi, insert_val, insert_ok)
+        elif dense and sharded:
+            # The budget's window is not aligned with the table's shards:
+            # gather its results, then each rank updates the rows it owns.
+            both = parallel.gather_rows(mesh, torch.cat(
+                [insert_val, insert_ok.float()[:, None]], dim=-1), p)
+            r0, _ = parallel.ray_sharding(mesh, gilib.dense_rows(scene))
+            new_gi = gilib.dense_update_rows(state.gi, r0, slice_start,
+                                             both[:, :3], both[:, 3] > 0.0)
         elif dense:
             new_gi = gilib.dense_update_slice(state.gi, slice_start,
                                               insert_val, insert_ok)
@@ -514,61 +604,111 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
                 surfels[slice_start:slice_start + p] = requeued
 
     # -------------------------------------------------- 5. post
-    dep2 = from_tiles(g["depth"])
-    nor2 = from_tiles(normal)
-    wpos2 = from_tiles(g["world_pos"])
-    mot2 = from_tiles(g["motion"])
-    valid2 = torch.isfinite(dep2)
+    # The per-ray channels the post reads, as images. Sharded: one
+    # all-gather assembles every rank's rays on every rank; each pass
+    # then computes the rank's rows.
+    half = _half_res(settings)
+    split = half or settings.denoiser.split_direct
+    chans = dict(depth=g["depth"], albedo=g["albedo"][:, :3])
+    if gi:
+        chans.update(hitdist=hitdist, normal=normal, world_pos=g["world_pos"],
+                     motion=g["motion"])
+    if gi and split:
+        chans.update(ind=torch.where(hit[:, None], illum, 0.0),
+                     comp=torch.where(hit[:, None], direct, sky_out))
+    if not (gi and split) or return_aux:
+        chans["radiance"] = radiance_img
+    if return_aux:
+        chans.update(hitdist=hitdist, normal=normal, motion=g["motion"],
+                     voxel_id=g["voxel_id"])
+    if sharded:
+        chans = _gather_columns(mesh, chans, n)
+    img = {name: from_tiles(v) for name, v in chans.items()}
+
+    row_lo, row_hi = parallel.ray_sharding(mesh, H) if sharded else (0, H)
+    own = slice(row_lo, row_hi)
+
+    def around(lo_, hi_, length):
+        """Rows [lo_, hi_) and one more on each side, in the image."""
+        return slice(max(lo_ - 1, 0), min(hi_ + 1, length))
+
+    def den_rows(lo_, hi_, length):
+        """The denoiser's keyword ``rows`` for image rows [lo_, hi_) of
+        ``length``; none (the whole image) without a mesh."""
+        if not sharded:
+            return {}
+        return dict(rows=(lo_, hi_, lambda x: parallel.gather_rows(
+            mesh, x, length)))
+
+    dep2 = img["depth"]
+    valid2 = torch.isfinite(dep2[own])
     if not gi:
         # Direct light alone is deterministic: nothing to denoise.
-        denoised = from_tiles(radiance_img)
+        denoised = img["radiance"][own]
         new_den = state.denoiser
-    elif not _half_res(settings):
-        if settings.denoiser.split_direct:
-            # The indirect alone rides the temporal chain; direct composes
-            # after (the half-res estimator at full resolution).
-            den_i, _hd, new_den = denoiselib.denoise(
-                state.denoiser, from_tiles(torch.where(hit[:, None], illum,
-                                                       0.0)),
-                from_tiles(hitdist), dep2, nor2, wpos2, mot2,
-                state.prev_view_proj, settings.denoiser)
-            denoised = torch.where(valid2[..., None], den_i, 0.0) + from_tiles(
-                torch.where(hit[:, None], direct, sky_out))
-        else:
-            # Direct and indirect through the denoiser together, as the
-            # reference's REBLUR input.
-            denoised, _hd, new_den = denoiselib.denoise(
-                state.denoiser, from_tiles(radiance_img), from_tiles(hitdist),
-                dep2, nor2, wpos2, mot2, state.prev_view_proj,
-                settings.denoiser)
+    elif not half:
+        # Full resolution: the indirect alone rides the temporal chain and
+        # direct composes after (split_direct: the half-res estimator at
+        # full resolution), or both through the denoiser together, as the
+        # reference's REBLUR input.
+        rad2 = img["ind"] if split else img["radiance"]
+        den, _hd, new_den = denoiselib.denoise(
+            state.denoiser, rad2[around(row_lo, row_hi, H)],
+            img["hitdist"][own], dep2[own], img["normal"][own],
+            img["world_pos"][own], img["motion"][own], state.prev_view_proj,
+            settings.denoiser, **den_rows(row_lo, row_hi, H))
+        denoised = (torch.where(valid2[..., None], den, 0.0)
+                    + img["comp"][own]) if split else den
     else:
-        ind2 = from_tiles(torch.where(hit[:, None], illum, 0.0))
+        # Half resolution: the rank's half-res rows [lo_h, hi_h); its
+        # full-res rows read the half-res rows [up_lo, up_hi) in the
+        # upsample; the downsample covers both with the denoiser's
+        # one-row margin.
+        Hh = H // 2
+        lo_h, hi_h = parallel.ray_sharding(mesh, Hh) if sharded else (0, Hh)
+        up_lo, up_hi = max(0, row_lo // 2 - 1), min(Hh, (row_hi - 1) // 2 + 2)
+        a = min(max(lo_h - 1, 0), up_lo)
+        b = max(min(hi_h + 1, Hh), up_hi)
+        full = slice(2 * a, 2 * b)
         rh, hh, dh, nh, wh, mh = denoiselib.downsample_inputs(
-            ind2, from_tiles(hitdist), dep2, nor2, wpos2, mot2)
+            img["ind"][full], img["hitdist"][full], dep2[full],
+            img["normal"][full], img["world_pos"][full], img["motion"][full])
+        mine = slice(lo_h - a, hi_h - a)
+        win = around(lo_h, hi_h, Hh)
         # One fewer à-trous iteration at half res (same world-space
         # footprint).
         den_settings = dataclasses.replace(
             settings.denoiser,
             atrous_iterations=max(settings.denoiser.atrous_iterations - 1, 1))
         den_h, hd_h, new_den = denoiselib.denoise(
-            state.denoiser, rh, hh, dh, nh, wh, mh, state.prev_view_proj,
-            den_settings)
-        ind_full, _hd = denoiselib.upsample_bilateral(den_h, hd_h, dh, nh,
-                                                      dep2, nor2)
-        denoised = torch.where(valid2[..., None], ind_full, 0.0) + from_tiles(
-            torch.where(hit[:, None], direct, sky_out))
+            state.denoiser, rh[win.start - a:win.stop - a], hh[mine],
+            dh[mine], nh[mine], wh[mine], mh[mine], state.prev_view_proj,
+            den_settings, **den_rows(lo_h, hi_h, Hh))
+        if sharded:
+            both = parallel.gather_rows(
+                mesh, torch.cat([den_h, hd_h[..., None]], dim=-1), Hh)
+            den_h, hd_h = both[..., :3], both[..., 3]
+        up = slice(up_lo - a, up_hi - a)
+        ind_full, _hd = denoiselib.upsample_bilateral(
+            den_h[up_lo:up_hi], hd_h[up_lo:up_hi], dh[up], nh[up],
+            dep2[2 * up_lo:2 * up_hi], img["normal"][2 * up_lo:2 * up_hi])
+        ind_full = ind_full[row_lo - 2 * up_lo:row_hi - 2 * up_lo]
+        denoised = torch.where(valid2[..., None], ind_full, 0.0) + \
+            img["comp"][own]
 
     weighted = exposurelib.mean_bin(denoised, settings.exposure)
+    if sharded:
+        weighted = parallel.all_reduce_sum(mesh, weighted)
     new_avg = exposurelib.adapt_average_luminance(
         state.exposure_avg, n, settings.exposure, weighted)
     exposure = exposurelib.exposure_value(new_avg)
-    albedo_img = from_tiles(g["albedo"][:, :3])
+    albedo_img = img["albedo"][own]
     output = tonemaplib.tonemap(denoised, albedo_img, exposure, "srgb")
 
     aux = dict(
-        depth=dep2, albedo=albedo_img, normal=nor2,
-        motion=mot2, voxel_id=from_tiles(g["voxel_id"]),
-        radiance=from_tiles(radiance_img), hitdist=from_tiles(hitdist),
+        depth=dep2[own], albedo=albedo_img, normal=img["normal"][own],
+        motion=img["motion"][own], voxel_id=img["voxel_id"][own],
+        radiance=img["radiance"][own], hitdist=img["hitdist"][own],
         denoised=denoised, exposure=exposure,
     ) if return_aux else {}
     new_state = FrameState(
