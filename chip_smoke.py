@@ -28,11 +28,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
 7. the same frame through the loop route (DUST_PALLAS_SCENE=loop, set
    in-process and removed afterwards): checks the single-instance
    kernel's launches per frame (11 per trace: precise 11, ao_fg 11,
-   ao_threshold 11, rough 33; no scene-kernel launch), holds that kernel
-   against its plain version per mode on a 65,536-ray subsample of a
-   recorded launch (torch.equal) and times both on the full launch,
-   prints ms/frame and Mrays/s, and checks the loop-route image
-   against the batched-route image of the same frame (RMSE < 0.01);
+   ao_threshold 11, rough 33; no scene-kernel launch), prints ms/frame
+   and Mrays/s, holds that kernel against its plain version per mode on
+   the whole recorded launch with the most active rays and on three edge
+   launches made from it (no ray active with NaN origins, only its
+   active rays, a ragged count; torch.equal), times both on that launch
+   against the bound of what each ray needs, sums the kernel's device
+   time over every launch of one loop frame per mode (the creeping
+   ray's launches apart), and checks the loop-route image against the
+   batched-route image of the same frame (RMSE < 0.01);
 8. renders a 128x72 stress frame on the card and on the CPU and checks
    that the two images agree (RMSE < 0.01);
 9. the spatial-hash frame (bench.py --config hash-reference: castle +
@@ -81,8 +85,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    editor's given the same edits, the dense GI albedo words equal to a
    fresh cache of the edited scene, and the scene kernel equal to its
    plain version on 65,536 of the frame's rays per mode; then one
-   loop-route frame on the rebuilt tables with the instance kernels held
-   the same way; a frame with and one without a leaf edit under
+   loop-route frame on the rebuilt tables with the instance kernel held
+   on each of its 12 launches whole and its device time summed; a frame with and one without a leaf edit under
    torch.profiler (the edit adds no host sync); a 1080p frame with the
    teapot on EmissiveMaterial (and
    at 256x144 card vs CPU RMSE < 0.01, the teapot's pixels brighter);
@@ -346,18 +350,41 @@ def _bound(tensors, flops):
                                                            "operations")
 
 
+def _instance_bytes(args, mode):
+    """What one single-instance launch must move, (bytes, active rays),
+    ray by ray: a ray with s_min >= s_stop is inactive whatever else it
+    holds (the walk starts at s >= s_min and ends at s_stop), so it reads
+    s_min and s_stop and writes the three miss outputs; an active ray
+    (NaN bounds included) also reads its origin and direction, and in
+    ao_fg its s_ao. The table words a walk reads depend on its path and
+    are not counted (at most 0.31 MB for the castle). ``args``: the
+    wrapper's (l1, l2, mask, origin, direction, s_min, s_stop, s_ao)."""
+    s_min, s_stop = args[5], args[6]
+    active = int((~(s_min >= s_stop)).sum())
+    per_active = 24 + (4 if mode == "ao_fg" else 0)
+    return s_min.shape[0] * (8 + 12) + active * per_active, active
+
+
+def _instance_bound(args, mode):
+    """The least time of a single-instance launch, (ms, "bytes"): its
+    :func:`_instance_bytes` at the memory rate. The walk's float
+    operations depend on the data and are not counted."""
+    return 1e3 * _instance_bytes(args, mode)[0] / MEM_BYTES_PER_S, "bytes"
+
+
 def _hold(label, run, run_plain, full, tables, flops, plain_timed=True,
-          timed=True):
-    """Kernel against plain version on a subsample of the recorded launch
-    ``full``: every output must be equal (torch.equal). Then, with
-    ``timed``, the kernel is timed on the full launch, replayed from a
-    CUDA graph (and, with ``plain_timed``, the plain version from the
-    host); its bound counts ``flops`` float operations. Returns a dict:
-    max |dt|, and with ``timed`` kernel ms, plain ms (or None), bound ms
-    and what bounds it."""
+          timed=True, sample=SUBSAMPLE, bound=None):
+    """Kernel against plain version on ``sample`` rays of the recorded
+    launch ``full`` (all of them if None): every output must be equal
+    (torch.equal). Then, with ``timed``, the kernel is timed on the full
+    launch, replayed from a CUDA graph (and, with ``plain_timed``, the
+    plain version from the host); its bound is ``bound(full)``, or the
+    bytes of every input and output with ``flops`` float operations.
+    Returns a dict: max |dt|, and with ``timed`` kernel ms, plain ms (or
+    None), bound ms and what bounds it."""
     import torch
 
-    sub = _subsample(full, SUBSAMPLE, tables)
+    sub = full if sample is None else _subsample(full, sample, tables)
     out_k = run(sub)
     out_p = run_plain(sub)
     agree, err = _compare(out_k, out_p)
@@ -370,7 +397,8 @@ def _hold(label, run, run_plain, full, tables, flops, plain_timed=True,
                          f"(agreement {agree:.4%}, max |dt| {err:.3g})")
     if not timed:
         return dict(err=err)
-    bound, bound_by = _bound(full + run(full), flops)
+    bound, bound_by = (_bound(full + run(full), flops) if bound is None
+                       else bound(full))
     ms = _kernel_ms(lambda: run(full))
     plain_ms = _ms(lambda: run_plain(full), 1) if plain_timed else None
     print(f"{label:28s} full launch ({full[tables].shape[0]} rays): kernel "
@@ -438,6 +466,77 @@ def _hold_scene_kernel(hdda, ctx, f, label, plain_timed, render=None,
         held[mode] = _hold(f"{label} {mode}", run, run_plain, full, 7, flops,
                            plain_timed, timed)
     return held
+
+
+def _record_instance_launches(into):
+    """A recorder for ``hdda_instance``: appends (mode, the wrapper's 8
+    arguments) of every launch to ``into``."""
+    return lambda a, kw: into.append((kw["mode"],
+                                      a + (None,) * (8 - len(a))))
+
+
+def _instance_edges(full):
+    """The edge launches of a recorded single-instance launch: no ray
+    active (s_stop = s_min, origins NaN, which no inactive ray may read),
+    every ray active (its active rays alone), and a ragged count (SUBSAMPLE
+    + 37 rays, a multiple of no block size)."""
+    import torch
+
+    tables, (o, d, s_min, s_stop, s_ao) = full[:3], full[3:]
+    act = torch.nonzero(~(s_min >= s_stop)).flatten()
+    return {
+        "no ray active": tables + (torch.full_like(o, float("nan")), d, s_min,
+                                   s_min.clone(), s_ao),
+        "every ray active": tables + tuple(
+            None if x is None else x[act].contiguous() for x in full[3:]),
+        "ragged count": _subsample(full, SUBSAMPLE + 37, 3),
+    }
+
+
+def _hold_instance(hdda, label, mode, full, timed=True, edges=False):
+    """The single-instance kernel against its plain version on the whole
+    recorded launch ``full`` (torch.equal), and with ``edges`` on its
+    :func:`_instance_edges`; with ``timed``, timed against its bound
+    (:func:`_instance_bound`). Returns _hold's dict."""
+    def run(a):
+        return hdda.hdda_instance(*a[:8], mode=mode)
+
+    def run_plain(a):
+        return hdda.hdda_instance_plain(*a[:8], mode)
+
+    h = _hold(f"{label} {mode}", run, run_plain, full, 3, 0, timed=timed,
+              sample=None, bound=lambda a: _instance_bound(a, mode))
+    if edges:
+        for what, a in _instance_edges(full).items():
+            _hold(f"{label} {mode}, {what}", run, run_plain, a, 3, 0,
+                  timed=False, sample=None)
+    return h
+
+
+def _instance_frame_ms(hdda, recs, label, card):
+    """Each mode's single-instance device time over one loop frame: every
+    launch in ``recs`` (mode, args) timed from a CUDA-graph replay, summed,
+    beside the summed bounds. Launches over 10x their mode's median are
+    listed apart (the creeping ray's). Returns {mode: dict}."""
+    times = {}
+    for mode, a in recs:
+        ms = _kernel_ms(lambda: hdda.hdda_instance(*a[:8], mode=mode))
+        times.setdefault(mode, []).append((ms, _instance_bound(a, mode)[0]))
+    out = {}
+    for mode, rows in times.items():
+        ms = sorted(r[0] for r in rows)
+        slow = [m for m in ms if m > 10.0 * ms[len(ms) // 2]]
+        total, bound = sum(ms), sum(r[1] for r in rows)
+        out[mode] = dict(launches=len(rows), ms=total, bound_ms=bound,
+                         slow_ms=slow)
+        print(f"{label} hdda_instance<{mode}>: {len(rows)} launches, "
+              f"{total:.4f} ms of device time a frame against a bound of "
+              f"{bound:.4f} ms ({100.0 * bound / total:.1f}%)"
+              + (f"; {len(slow)} over 10x the median (the creeping ray: "
+                 f"{', '.join(f'{m:.3f}' for m in slow)} ms), the rest "
+                 f"{total - sum(slow):.4f} ms" if slow else "")
+              + f" [{card}]")
+    return out
 
 
 def _occupied(state) -> int:
@@ -956,11 +1055,10 @@ def _edits_phase(hdda, dev, card, reset_counts, rmse):
     # ---- the loop route on the rebuilt tables: the instance kernels -----
     os.environ["DUST_PALLAS_SCENE"] = "loop"
     try:
-        first = {}
+        recs = []
         reset_counts()
-        _recording(hdda, "hdda_instance", lambda a, kw: first.setdefault(
-            kw["mode"], a + (None,) * (8 - len(a))),
-            lambda: be.render(ctx))
+        _recording(hdda, "hdda_instance", _record_instance_launches(recs),
+                   lambda: be.render(ctx))
         per_frame = {m: ctx["scene"].num_instances * k
                      for m, k in SCENE_LAUNCHES.items()}
         _check_launches(hdda.INSTANCE_LAUNCHES, per_frame, 1,
@@ -968,11 +1066,11 @@ def _edits_phase(hdda, dev, card, reset_counts, rmse):
         _check_launches(hdda.LAUNCHES, NO_LAUNCHES, 1, "edits loop hdda_scene")
         loop_launches = dict(hdda.INSTANCE_LAUNCHES)
         torch.cuda.synchronize()
-        for mode in hdda.MODES:
-            _hold(f"edits loop hdda_instance {mode}",
-                  lambda a, m=mode: hdda.hdda_instance(*a[:8], mode=m),
-                  lambda a, m=mode: hdda.hdda_instance_plain(*a[:8], m),
-                  first[mode], 3, 0, timed=False)
+        for mode, a in recs:
+            _hold_instance(hdda, "edits loop hdda_instance", mode, a,
+                           timed=False)
+        loop_frame_ms = _instance_frame_ms(hdda, recs, "edits loop frame",
+                                           card)
     finally:
         os.environ.pop("DUST_PALLAS_SCENE", None)
 
@@ -1046,7 +1144,7 @@ def _edits_phase(hdda, dev, card, reset_counts, rmse):
           f"{iso['leaf_ms'][0]:.2f} / {iso['leaf_ms'][1]:.2f}, splice "
           f"{iso['splice_ms'][0]:.2f} / {iso['splice_ms'][1]:.2f}, rebuild "
           f"{iso['rebuild_ms'][0]:.2f} / {iso['rebuild_ms'][1]:.2f} [{card}]")
-    return times, launches, loop_launches
+    return times, launches, loop_launches, loop_frame_ms
 
 
 def _sharded_phase(hdda, dev, card, reset_counts):
@@ -1271,16 +1369,9 @@ def main() -> int:
     first = 1 + FRAMES
     os.environ["DUST_PALLAS_SCENE"] = "loop"
     try:
-        busiest = {}
-
-        def keep_busiest(args, kw):
-            """Per mode, the launch with the most active rays."""
-            args = args + (None,) * (8 - len(args))
-            n_live = int((args[6] > args[5]).sum())
-            if n_live > busiest.get(kw["mode"], (-1,))[0]:
-                busiest[kw["mode"]] = (n_live, args)
-
-        _recorded_frame(stress, first, hdda, "hdda_instance", keep_busiest)
+        recs = []
+        _recorded_frame(stress, first, hdda, "hdda_instance",
+                        _record_instance_launches(recs))
         reset_counts()
         out, times = _timed_frames(stress, FRAMES, first=first + 1)
         per_trace = {m: STRESS_INSTANCES * k for m, k in SCENE_LAUNCHES.items()}
@@ -1291,25 +1382,31 @@ def main() -> int:
         launches = dict(hdda.INSTANCE_LAUNCHES)
         _report_frame("stress, loop route", stress, out, times, card)
         torch.cuda.synchronize()
+        # Per mode, the launch with the most active rays, held whole and on
+        # its edge launches, and timed; then every launch of the frame.
+        busiest = {}
+        for mode, a in recs:
+            live = _instance_bytes(a, mode)[1]
+            if live > busiest.get(mode, (-1,))[0]:
+                busiest[mode] = (live, a)
         for mode in hdda.MODES:
-            full = busiest[mode][1]
-
-            def run(a, m=mode):
-                return hdda.hdda_instance(*a[:8], mode=m)
-
-            def run_plain(a, m=mode):
-                return hdda.hdda_instance_plain(*a[:8], m)
-
-            h = _hold(f"stress hdda_instance {mode}", run, run_plain, full, 3,
-                      0)
+            live, full = busiest[mode]
+            h = _hold_instance(hdda, "stress hdda_instance", mode, full,
+                               edges=True)
+            print(f"stress hdda_instance<{mode}> busiest launch: {live} of "
+                  f"{full[3].shape[0]} rays active, {h['ms']:.4f} ms against "
+                  f"a bound of {h['bound_ms']:.4f} ms "
+                  f"({100.0 * h['bound_ms'] / h['ms']:.1f}%) [{card}]")
             kernels.append(dict(
                 name=f"hdda_instance<{mode}>", route="cuda",
                 source="dust_tpu_torch/csrc/hdda.cu",
                 replaces=REPLACES + ("1397" if mode == "ao_fg" else "1335"),
                 launches=launches[mode], max_abs_err=h["err"], ms=h["ms"],
                 plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
-                bound_by=h["bound_by"], library_ms=None))
-        del busiest
+                bound_by=h["bound_by"], library_ms=None, active_rays=live))
+        loop_frame_ms = {"stress loop": _instance_frame_ms(
+            hdda, recs, "stress loop frame", card)}
+        del busiest, recs
         # One frame from one state through both routes.
         f = first + 1 + FRAMES
         img_loop, _ = _render(stress, f, stress["state"])
@@ -1386,8 +1483,8 @@ def main() -> int:
     gates = _gates(dev, here, card)
 
     # ---- 17. edits and refit with the GI frame re-rendered -------------
-    edit_times, edit_launches, loop_launches = _edits_phase(
-        hdda, dev, card, reset_counts, rmse)
+    edit_times, edit_launches, loop_launches, loop_frame_ms["edits loop"] = (
+        _edits_phase(hdda, dev, card, reset_counts, rmse))
 
     # ---- 18. the ray-sharded 4K flythrough on a one-rank NCCL group ----
     by_path["flythrough-sharded"], sharded = _sharded_phase(
@@ -1417,6 +1514,8 @@ def main() -> int:
             mode = k["name"][len("hdda_instance<"):-1]
             k["launches_by_path"] = {"stress": k["launches"],
                                      "edits loop": loop_launches[mode]}
+            k["loop_frame"] = {path: by_mode[mode] for path, by_mode
+                               in loop_frame_ms.items()}
     print(json.dumps({"eager_backend": eager, "gates": gates,
                       "edits": edit_times, "flythrough_sharded": sharded}))
     for mode in hdda.MODES:

@@ -22,6 +22,25 @@
 // the scene trace does those in PyTorch). Outputs are in s units. Its
 // plain version is hdda_instance_plain in ops/hdda.py.
 //
+// What bounds the single-instance kernel: bytes on the loop route's
+// mostly empty launches, the walk's latency on the rest. The loop route
+// launches it over every ray of the frame once per instance, and only
+// 0-7% of them (up to 94% in the surfel pass) have a non-empty range in
+// the instance's box. Every ray must still have s_min and s_stop read and
+// three outputs written, 20 bytes (0.0124 ms for a 1080p frame at 3.35
+// TB/s); an active ray also reads its origin and direction. The design is
+// the range test first: a thread reads s_min and s_stop, and a ray with
+// s_min >= s_stop writes the miss outputs and ends there, so a warp of
+// empty rays moves 20 bytes a ray, not 44. On the 1080p launches with
+// under 1% of rays active that took 32-53% off, on the busiest 14-31%
+// (PERF.md, section 6). The rays that walk keep one thread each in the
+// caller's ray order, as in the scene kernel. Compacting them into full
+// warps first (a queue filled by one ballot per warp, then a persistent
+// grid; or inside each block) was measured slower: a launch's active rays
+// lie together in the frame, so its warps were already mostly full or
+// empty, and a busy launch lasts as long as its slowest block (57-63 of
+// 60-64 us in precise), whose walks no schedule of whole rays shortens.
+//
 // Modes: PRECISE, AO_THRESHOLD, ROUGH, AO_FG (template parameter).
 //
 // Iteration caps are per ray, as they are per lane on the TPU: `rounds`
@@ -33,9 +52,10 @@
 // explicit __fmaf_rn calls, placed where the reference's XLA build
 // contracts them and mirrored in the plain version.
 //
-// What bounds it on this card: latency, not bytes or FLOPs. A launch must
-// move about 48 bytes per ray (56 in AO_FG) plus the 0.6 MB of tables,
-// 0.030 ms at 3.35 TB/s, and does a few dozen float operations per step;
+// What bounds the scene kernel on this card: latency, not bytes or FLOPs.
+// A launch must move about 48 bytes per ray (56 in AO_FG) plus the 0.6 MB
+// of tables, 0.030 ms at 3.35 TB/s, and does a few dozen float operations
+// per step;
 // each step needs a table word before it can choose the next one. Measured
 // per ray on the 1080p frames (PERF.md, section 5): 69-97% of rays enter no
 // instance, walks are 6-13 steps at the median and at most 30-303, warps
@@ -67,6 +87,8 @@ constexpr float kStepEps = 1e-4f;  // cell-sampling nudge
 constexpr int kRounds = 64;
 constexpr int kMarchCap = 160;
 constexpr int kMicroCap = 12;
+// Threads per block of the single-instance kernel.
+constexpr int kInstanceThreads = 128;
 
 enum Mode { PRECISE = 0, AO_THRESHOLD = 1, ROUGH = 2, AO_FG = 3 };
 
@@ -537,21 +559,37 @@ __global__ void __launch_bounds__(128) hdda_kernel(Params p) {
   if (i < p.n) trace_ray<MODE>(p, i);
 }
 
+// The single-instance kernel: the range test first. A ray with s_min >=
+// s_stop cannot walk (traverse starts at s >= s_min and stops at s_stop), so
+// it gets the miss outputs without its origin and direction being read; a
+// NaN bound fails the test and walks, as it would have.
 template <int MODE>
-__global__ void __launch_bounds__(128) hdda_instance_kernel(InstanceParams p) {
+__global__ void __launch_bounds__(kInstanceThreads) hdda_instance_kernel(
+    InstanceParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
+  const float s_min = p.s_min[i];
+  const float s_stop = p.s_stop[i];
+  if (s_min >= s_stop) {  // traverse's outputs for an empty range
+    p.s0[i] = __int_as_float(0x7f800000);
+    p.row[i] = -1;
+    if (MODE == AO_FG) {
+      p.s1[i] = __int_as_float(0x7f800000);
+    } else {
+      p.bit[i] = -1;
+    }
+    return;
+  }
   Ray ray;
   for (int j = 0; j < 3; ++j) {
     ray.o[j] = p.origin[3 * i + j];
     ray.d[j] = p.dir[3 * i + j];
   }
   set_direction(ray);
-  const float s_stop = p.s_stop[i];
   // AO_THRESHOLD's quirk plane is s_stop itself on this route (the caller
   // keeps s_stop at the committed tmax); AO_FG takes s_ao as given.
   const float s_ao = MODE == AO_FG ? p.s_ao[i] : s_stop;
-  const CoreOut c = traverse<MODE>(ray, p.l1, p.l2, p.mask, p.s_min[i], s_stop,
+  const CoreOut c = traverse<MODE>(ray, p.l1, p.l2, p.mask, s_min, s_stop,
                                    s_ao, p.rounds);
   p.s0[i] = c.s0;
   p.row[i] = c.row;
@@ -632,7 +670,7 @@ extern "C" int hdda_instance_launch(int mode, const void* l1, const void* l2,
   p.n = n;
   p.rounds = rounds;
   if (n <= 0) return 0;
-  const int threads = 128;
+  const int threads = kInstanceThreads;
   const int blocks = (n + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {

@@ -167,7 +167,7 @@ def test_kernel_matches_plain_on_the_card():
 def test_instance_kernel_matches_plain_on_the_card():
     """On a CUDA device: the single-instance kernel against its plain
     version on the teapot's camera and secondary rays in object space,
-    every mode, hit-exact."""
+    every mode, hit-exact, and on the range test's edge launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from dust_tpu_torch.vox import procgen
@@ -204,6 +204,38 @@ def test_instance_kernel_matches_plain_on_the_card():
             torch.cuda.synchronize()
             for a, b in zip(k, p):
                 assert torch.equal(a, b), mode
+        # Edge launches of the range test on the camera rays: no ray
+        # active; every ray active; one active lane per warp; NaN origins
+        # on the inactive lanes (which the kernel never reads); a count
+        # that is a multiple of no block size.
+        n = o.shape[0]
+        do = xform_dir(w2o, d)
+        o_obj = xform_point(w2o, o).contiguous()
+        dn = (do / dir_length(do)[:, None]).contiguous()
+        s_min = torch.full((n,), 0.1, device=dev)
+        far = torch.full((n,), 1000.0, device=dev)
+        lane = torch.arange(n, device=dev)
+        nan_o = torch.full_like(o_obj, float("nan"))
+        odd = lane % 2 == 1
+        edges = {
+            "none active": (nan_o, dn, s_min, s_min.clone()),
+            "all active": (o_obj, dn, s_min, far),
+            "one per warp": (o_obj, dn, s_min,
+                             torch.where(lane % 32 == 5, far, s_min - 1.0)),
+            "NaN inactive": (torch.where(odd[:, None], nan_o, o_obj), dn,
+                             s_min, torch.where(odd, s_min, far)),
+            "ragged": (o_obj[:10007].contiguous(), dn[:10007].contiguous(),
+                       s_min[:10007].contiguous(), far[:10007].contiguous()),
+        }
+        for what, (eo, ed, lo, hi) in edges.items():
+            s_ao = (torch.full_like(lo, 8.0) if mode == "ao_fg" else None)
+            k = hdda.hdda_instance(*tab, eo, ed, lo, hi, s_ao, mode=mode)
+            p = hdda.hdda_instance_plain(*tab, eo, ed, lo, hi, s_ao, mode)
+            torch.cuda.synchronize()
+            for a, b in zip(k, p):
+                assert torch.equal(a, b), (mode, what)
+            if what == "none active":
+                assert bool(torch.isinf(k[0]).all()), mode
 
 
 @pytest.mark.gpu
