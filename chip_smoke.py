@@ -105,7 +105,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
    from the same state (isclose 1e-3 on more than 99.9% of the values),
    the unsharded frames timed in the same call; then the dry run's four
    gates on one rank of the card (python -m
-   dust_tpu_torch.parallel.dryrun --ranks 1 --device cuda).
+   dust_tpu_torch.parallel.dryrun --ranks 1 --device cuda);
+19. bench_trace (dust_tpu_torch/tools/bench_trace.py, the port of
+   tools/bench_trace.py) at 1920x1080: each of its five passes (primary,
+   shadow, ao, fg, aofg) on the gi frame's real rays, 12 launches per
+   timing, best of 3: the scene kernel's launches of each pass checked,
+   a finite checksum and a hit rate in (0, 1], ms (host and device) and
+   Mrays/s per pass, each pass's launch alone (CUDA-graph replay); the
+   primary and aofg launches held against the plain version on 65,536 of
+   their rays (torch.equal);
+20. profile_stages at 1920x1080 (the hash frame, a 720x480 pool, 2^22
+   slots): every stage's host and device ms, the stage names the
+   reference's;
+21. profile_frame: 8 gi frames under torch.profiler, the Chrome trace
+   written and not empty, the kernel table printed, 6 launches a frame;
+22. gen_ground_truth at 256x256 with the golden's counts (64 warm-up and
+   512 accumulated frames), written into a temporary directory: the
+   output's RMSE against tests/golden/castle_gt_256x256.npz below 0.01,
+   the radiance's and albedo's RMSE and both exposures printed, and the
+   seconds it took (a line of its own when over 60 s);
+23. reservoirs: 2^20 updated three times, packed and unpacked on the card
+   and on the CPU from one seed: counts, weights and direction words
+   equal, LogLuv words equal on at least 99.99% and at most one
+   log-luminance code apart.
 
 Every config is built and rendered through the bench module
 (dust_tpu_torch/bench.py). Before the result it prints each scene-kernel
@@ -153,11 +175,10 @@ SHARDED_LAUNCHES = {"precise": 1, "ao_fg": 0, "ao_threshold": 2, "rough": 4}
 # 960x540; the lane-retirement intervals it is timed at.
 EAGER_MAX_S = 10.0
 SYNC_CHOICES = (1, 4, 8, 16, 32, 256, 32, 16, 8, 4)
-# tests/test_quality.py's converged-ground-truth gates: the bounds, the
-# frame counts, and tests/quality_setup.py's camera, hash and pool.
+# tests/test_quality.py's converged-ground-truth gates: the bounds and
+# the frame counts (the camera, hash and pool are the port's copy of
+# tests/quality_setup.py, dust_tpu_torch/tools/quality_setup.py).
 GT_PATH = os.path.join("tests", "golden", "castle_gt_256x256.npz")
-GT_EYE, GT_TARGET = (150.0, 90.0, 180.0), (0.0, 30.0, 0.0)
-GT_CAPACITY, GT_POOL = 1 << 18, 16384
 RMSE_DENOISED = 0.045
 HALF_RES_EXTRA = 0.017
 RMSE_HALF_CONVERGED = 0.055
@@ -169,6 +190,23 @@ REPLACES = "dust_tpu/ops/pallas_trace.py:"
 # edits per isolated tier.
 EDIT_FRAMES = 10
 ISOLATED_EDITS = 5
+# The reference's tools on the card: bench_trace's launches per timing;
+# tools/profile_stages.py's stage names, in its order ({p}: the pool);
+# gen_ground_truth's warm-up frames (its default; the accumulated frames
+# are the golden's own count) and its bound on the output's RMSE against
+# the golden; the reservoirs packed on the card and on the CPU.
+BENCH_TRACE_REPS = 12
+STAGE_NAMES = (
+    "primary trace (precise)", "resolve_hits", "shadow trace (precise)",
+    "AO trace (ao_threshold)", "FG trace (rough)", "leaf_attributes (2M)",
+    "hash_get (2M)", "pool_enqueue_mod (2M->pool)",
+    "surfel trace (rough, {p})", "hash_get ({p})", "hash_insert ({p})",
+    "denoise", "exposure histogram", "tonemap", "FULL FRAME")
+PROFILE_FRAMES = 8
+GT_WARMUP = 64
+RMSE_GOLDEN = 0.01
+GT_SLOW_S = 60.0
+RESERVOIRS = 1 << 20
 
 
 def _setup(device, width, height, config="gi", capacity=None, pool=None,
@@ -834,14 +872,14 @@ def _gates(dev, here, card):
     the card, on the HDDA kernel's backend."""
     import numpy as np
     import torch
-    from dust_tpu_torch.config import (DenoiserSettings, RenderSettings,
-                                       SpatialHashSettings, SurfelSettings)
-    from dust_tpu_torch.ops import camera as cameralib
+    from dust_tpu_torch.config import DenoiserSettings
     from dust_tpu_torch.ops import tonemap as tonemaplib
     from dust_tpu_torch.ops.noise import load_blue_noise
     from dust_tpu_torch.ops.sky import bake_sky
     from dust_tpu_torch.render.pipeline import make_frame_state, render_frame
     from dust_tpu_torch.render.scene import build_device_scene
+    from dust_tpu_torch.tools import quality_setup
+    from dust_tpu_torch.tools.rmse import rmse as err
     from dust_tpu_torch.vox import procgen
     from dust_tpu_torch.vox.loader import load_vox_scene
 
@@ -856,15 +894,8 @@ def _gates(dev, here, card):
     def run(frames, avg_last=0, **overrides):
         """The final frame tonemapped at the ground truth's exposure, and
         with ``avg_last`` the mean of the last frames too."""
-        kw = dict(width=W, height=H, gi_cache="dense",
-                  traversal_backend="pallas",
-                  spatial_hash=SpatialHashSettings(capacity=GT_CAPACITY),
-                  surfels=SurfelSettings(pool_size=GT_POOL))
-        kw.update(overrides)
-        s = RenderSettings(**kw)
-        cam = cameralib.camera_settings(
-            cameralib.look_at(GT_EYE, GT_TARGET), s.camera.fov,
-            s.camera.near, s.camera.far, W, H, dev)
+        s = quality_setup.gt_settings(W, H, backend="pallas", **overrides)
+        cam = quality_setup.gt_camera(s, W, H, dev)
         sky = bake_sky(s.sunlight, dev)
         state = make_frame_state(s, scene, dev)
         acc, cnt = 0.0, 0
@@ -876,10 +907,6 @@ def _gates(dev, here, card):
             if avg_last and f >= frames - avg_last:
                 acc, cnt = acc + img, cnt + 1
         return (img, acc / cnt) if avg_last else img
-
-    def err(a, b):
-        return float(np.sqrt(np.mean((np.asarray(a, np.float64)
-                                      - np.asarray(b, np.float64)) ** 2)))
 
     t0 = time.perf_counter()
     dense = run(GT_CONV_FRAMES, GT_CONV_AVG)
@@ -1284,6 +1311,194 @@ def _sharded_phase(hdda, dev, card, reset_counts):
         sun_two_launches_ms=sun_pair, ao_fg_ms=fused, isclose=agree)
 
 
+def _tools_phase(hdda, dev, card, reset_counts, here):
+    """Phases 19-23: the reference's tools, ported
+    (dust_tpu_torch/tools/), on the card. Returns ({path: the scene
+    kernel's launches per mode}, a dict of the phases' numbers)."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dust_tpu_torch.ops import reservoir as reslib
+    from dust_tpu_torch.tools import (bench_trace, gen_ground_truth,
+                                      profile_frame, profile_stages)
+    from dust_tpu_torch.tools.rmse import rmse
+
+    by_path, out = {}, {}
+
+    # ---- 19. bench_trace: each trace pass alone on a frame's rays -------
+    scene = bench_trace.build_scene(dev)
+    rays, _primary = bench_trace.build_rays(scene, WIDTH, HEIGHT, dev)
+    reset_counts()
+    passes = bench_trace.run(scene, rays, bench_trace.PASSES,
+                             BENCH_TRACE_REPS, dev,
+                             log=lambda line: print("bench_trace " + line))
+    by_path["bench_trace"] = dict(hdda.LAUNCHES)
+    for name, res in passes.items():
+        mode = rays[name][4]
+        want = {m: 4 * BENCH_TRACE_REPS * (m == mode) for m in hdda.MODES}
+        if res["launches"] != want:
+            raise SystemExit(f"bench_trace {name}: launches {res['launches']}"
+                             f", expected {want}")
+        if not (math.isfinite(res["checksum"]) and 0 < res["hit_rate"] <= 1):
+            raise SystemExit(f"bench_trace {name}: checksum "
+                             f"{res['checksum']}, hit rate {res['hit_rate']}")
+    print(f"bench_trace at {WIDTH}x{HEIGHT}, {BENCH_TRACE_REPS} launches per "
+          f"timing, best of 3 [{card}]")
+    # Each pass's launch alone (CUDA-graph replay), beside the burst's
+    # per-launch times; the primary and fused ao_fg launches against the
+    # plain version on 65,536 of their rays.
+    for name in bench_trace.PASSES:
+        calls = []
+        _recording(hdda, "hdda", lambda a, kw: calls.append(
+            (kw["mode"], a + (kw.get("t_ao"),))),
+            lambda: bench_trace.trace_pass(scene, rays[name]))
+        torch.cuda.synchronize()
+        mode, full = calls[0]
+        res = passes[name]
+        res["kernel_ms"] = _kernel_ms(
+            lambda: hdda.hdda(*full[:11], t_ao=full[11], mode=mode))
+        print(f"bench_trace {name}: the launch alone {res['kernel_ms']:.4f} "
+              f"ms (graph replay) against {res['ms']:.4f} ms a launch in "
+              f"the burst [{card}]")
+        if name in ("primary", "aofg"):
+            _hold(f"bench_trace {name} hdda_scene {mode}",
+                  lambda a, m=mode: hdda.hdda(*a[:11], t_ao=a[11], mode=m),
+                  lambda a, m=mode: hdda.hdda_plain(*a[:12], mode=m), full,
+                  7, 0, timed=False)
+    out["bench_trace"] = passes
+    del scene, rays, _primary
+
+    # ---- 20. profile_stages: each stage of the hash frame alone ---------
+    print(f"profile_stages at {WIDTH}x{HEIGHT}, pool {HASH_POOL}, 2^22 slots, "
+          f"best of 5 (host ms, device ms) [{card}]:")
+    reset_counts()
+    stages = profile_stages.profile(
+        WIDTH, HEIGHT, HASH_POOL, 1 << 22, 5, dev,
+        log=lambda line: print("profile_stages " + line))
+    by_path["profile_stages"] = dict(hdda.LAUNCHES)
+    want = [n.format(p=HASH_POOL) for n in STAGE_NAMES]
+    if list(stages) != want:
+        raise SystemExit(f"profile_stages: stages {list(stages)}, expected "
+                         f"the reference's {want}")
+    out["profile_stages"] = stages
+    # The insert's own device time: the kernels of one call at the pool
+    # size (profile_stages' inputs) summed under torch.profiler, against
+    # the span its CUDA events measure.
+    from dust_tpu_torch.ops import spatial_hash as sh
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.trunc(torch.randn((HASH_POOL, 3), generator=gen,
+                                device=dev).abs() * 50.0 / 4.0).int()
+    f0 = torch.zeros((HASH_POOL,), dtype=torch.int32, device=dev)
+    ones = torch.ones((HASH_POOL, 3), device=dev)
+    table = sh.make_spatial_hash(1 << 22, dev)
+    kernels, copies, syncs, dev_ms, wall_ms, top = _profile_frame(
+        None, 0, render=lambda: sh.hash_insert(table, q, f0, ones, 0,
+                                               valid=ones[:, 0] > 0))
+    print(f"hash_insert ({HASH_POOL}) under torch.profiler: {kernels} CUDA "
+          f"kernels, {copies} copies/sets, {syncs} host syncs, {dev_ms:.3f} ms "
+          f"of device time in {wall_ms:.3f} ms [{card}]")
+    for ms_k, count, name in top[:5]:
+        print(f"  {ms_k:8.3f} ms in {count:5d} launches: {name[:90]}")
+    out["hash_insert_profiled"] = dict(kernels=kernels, syncs=syncs,
+                                       device_ms=dev_ms, wall_ms=wall_ms)
+
+    # ---- 21. profile_frame: the gi frame under torch.profiler -----------
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        prof = profile_frame.profile(
+            WIDTH, HEIGHT, PROFILE_FRAMES, tmp, dev,
+            log=lambda line: print("profile_frame " + line))
+        _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, PROFILE_FRAMES + 2,
+                        "profile_frame hdda_scene")
+        by_path["profile_frame"] = dict(hdda.LAUNCHES)
+        size = os.path.getsize(prof["trace"])
+    print(f"profile_frame: {prof['ms_per_frame']:.3f} ms/frame under the "
+          f"profiler, Chrome trace {size} B, {len(prof['top'])} kernels in "
+          f"the table [{card}]")
+    if size == 0 or not prof["top"]:
+        raise SystemExit("profile_frame: an empty trace or kernel table")
+    out["profile_frame"] = dict(ms=prof["ms_per_frame"], trace_bytes=size,
+                                top=prof["top"][:5])
+
+    # ---- 22. gen_ground_truth against tests/golden/ ----------------------
+    golden = np.load(os.path.join(here, GT_PATH))
+    W, H, frames = (int(golden[k]) for k in ("width", "height", "frames"))
+    reset_counts()
+    t0 = time.perf_counter()
+    got = gen_ground_truth.ground_truth(
+        W, H, frames, GT_WARMUP, dev,
+        log=lambda line: print("gen_ground_truth " + line))
+    secs = time.perf_counter() - t0
+    _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, GT_WARMUP + frames,
+                    "gen_ground_truth hdda_scene")
+    by_path["gen_ground_truth"] = dict(hdda.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"castle_gt_{W}x{H}.npz")
+        gen_ground_truth.write(path, got)
+        written = np.load(path)
+        if sorted(written.files) != sorted(golden.files):
+            raise SystemExit(f"gen_ground_truth: fields {written.files}")
+    e_out = rmse(got["output"], golden["output"])
+    e_rad = rmse(got["radiance"], golden["radiance"])
+    e_alb = rmse(got["albedo"], golden["albedo"])
+    rms = rmse(golden["radiance"], np.zeros_like(golden["radiance"]))
+    print(f"gen_ground_truth {W}x{H}, {GT_WARMUP} + {frames} frames in "
+          f"{secs:.1f} s: against {GT_PATH}: output RMSE {e_out:.6f} (bound "
+          f"{RMSE_GOLDEN}), radiance RMSE {e_rad:.6f} (RMS {rms:.4f}), albedo "
+          f"RMSE {e_alb:.6f}; exposure {float(got['exposure']):.6f} on the "
+          f"card, {float(golden['exposure']):.6f} in the golden [{card}]")
+    if secs > GT_SLOW_S:
+        print(f"gen_ground_truth took {secs:.1f} s, over {GT_SLOW_S:.0f} s")
+    if not e_out < RMSE_GOLDEN:
+        raise SystemExit(f"gen_ground_truth: output RMSE {e_out:.6f} against "
+                         f"the golden")
+    out["gen_ground_truth"] = dict(
+        seconds=secs, output_rmse=e_out, radiance_rmse=e_rad,
+        radiance_rms=rms, albedo_rmse=e_alb,
+        exposure=float(got["exposure"]),
+        golden_exposure=float(golden["exposure"]))
+
+    # ---- 23. reservoirs: pack and unpack on the card and on the CPU -----
+    rng = np.random.default_rng(0)
+    steps = []
+    for _ in range(3):
+        d = rng.normal(size=(RESERVOIRS, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        steps.append([x.astype(np.float32) for x in (
+            d, np.exp(rng.normal(0.0, 2.0, (RESERVOIRS, 3))),
+            rng.exponential(1.0, RESERVOIRS), rng.random(RESERVOIRS))])
+    packed, unpacked = [], []
+    for where in (dev, torch.device("cpu")):
+        r = reslib.make_reservoirs(RESERVOIRS, where)
+        for step in steps:
+            r = reslib.reservoir_update(
+                r, *(torch.as_tensor(x, device=where) for x in step))
+        words = reslib.pack_reservoir(r)
+        packed.append([w.cpu() for w in words])
+        unpacked.append(reslib.unpack_reservoir(*words))
+    (cc, cd, cl, cw), (pc, pd, pl, pw) = packed
+    same = [torch.equal(cc, pc), torch.equal(cw, pw), torch.equal(cd, pd)]
+    luv_same = float((cl == pl).float().mean())
+    steps_apart = int(((cl >> 18) - (pl >> 18)).abs().max())
+    low_same = bool(((cl & 0x3FFFF) == (pl & 0x3FFFF)).all())
+    u_card, u_cpu = unpacked
+    dots = float((u_card.direction.cpu() * u_cpu.direction).sum(-1).min())
+    print(f"reservoirs, {RESERVOIRS} after 3 updates, card vs CPU: counts, "
+          f"weights, direction words equal {same}; LogLuv words equal on "
+          f"{luv_same:.6%}, log-luminance codes at most {steps_apart} apart, "
+          f"u and v codes equal {low_same}; unpacked directions' least dot "
+          f"{dots:.7f}")
+    if not (all(same) and luv_same >= 0.9999 and steps_apart <= 1
+            and low_same):
+        raise SystemExit("reservoirs: the card's packed words differ from "
+                         "the CPU's")
+    out["reservoirs"] = dict(count=RESERVOIRS, luv_equal=luv_same,
+                             luv_steps_apart=steps_apart)
+    return by_path, out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1298,9 +1513,9 @@ def main() -> int:
               "(dust_tpu_torch/ not found beside this script)", file=sys.stderr)
         return 1
     sys.path.insert(0, here)
-    from dust_tpu_torch.ops import hdda
-
     from dust_tpu_torch import bench
+    from dust_tpu_torch.ops import hdda
+    from dust_tpu_torch.tools.rmse import rmse as rmse_np
 
     card = bench.card_name()
     print(card)
@@ -1314,8 +1529,7 @@ def main() -> int:
             hdda.INSTANCE_LAUNCHES[m] = 0
 
     def rmse(a, b):
-        return float(np.sqrt(np.mean((a.float().cpu().numpy()
-                                      - b.float().cpu().numpy()) ** 2)))
+        return rmse_np(a.float().cpu().numpy(), b.float().cpu().numpy())
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -1490,6 +1704,10 @@ def main() -> int:
     by_path["flythrough-sharded"], sharded = _sharded_phase(
         hdda, dev, card, reset_counts)
 
+    # ---- 19-23. the reference's tools, ported, on the card -------------
+    tool_launches, tools = _tools_phase(hdda, dev, card, reset_counts, here)
+    by_path.update(tool_launches)
+
     for k in kernels:
         if k["name"].startswith("hdda_scene<"):
             mode = k["name"][len("hdda_scene<"):-1]
@@ -1517,7 +1735,8 @@ def main() -> int:
             k["loop_frame"] = {path: by_mode[mode] for path, by_mode
                                in loop_frame_ms.items()}
     print(json.dumps({"eager_backend": eager, "gates": gates,
-                      "edits": edit_times, "flythrough_sharded": sharded}))
+                      "edits": edit_times, "flythrough_sharded": sharded,
+                      "tools": tools}))
     for mode in hdda.MODES:
         h = stress_held[mode]
         print(f"stress hdda_scene<{mode}>: {h['ms']:.3f} ms per launch at "

@@ -11,7 +11,19 @@ same module names.
 
 The TPU kernels (the HDDA traversal's scene and single-instance kernels)
 are hand-written CUDA kernels in ``csrc/hdda.cu`` (see
-:mod:`dust_tpu_torch.ops.hdda`), built with ``nvcc`` at first use.
+:mod:`dust_tpu_torch.ops.hdda`), built with ``nvcc`` at first use. The
+reference's tools are ported in :mod:`dust_tpu_torch.tools`, one module
+each (``python -m dust_tpu_torch.tools.<name>``).
+
+Importing the package builds nothing and touches no device.
 """
 
-__all__ = ["app", "config", "ops", "render", "utils", "vox", "voxtree"]
+__version__ = "0.1.0"
+
+from dust_tpu_torch.config import (  # noqa: F401
+    RenderSettings,
+    ExposureSettings,
+    DenoiserSettings,
+    SpatialHashSettings,
+    SunlightSettings,
+)

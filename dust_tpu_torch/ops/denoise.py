@@ -78,6 +78,20 @@ def _unpack_history(h):
 class DenoiserState(NamedTuple):
     history: torch.Tensor  # (H, W, 3) int32 (u32 bits, layout above)
 
+    # Views of the packed history, for tests and inspection.
+    @property
+    def color(self) -> torch.Tensor:
+        return _unpack_rgb9e5(self.history[..., 0])
+
+    @property
+    def hitdist(self) -> torch.Tensor:
+        return torch.exp2((as_u32(self.history[..., 1]) & 0xFF).float()
+                          * (1.0 / 16.0)) - 1.0
+
+    @property
+    def history_len(self) -> torch.Tensor:
+        return ((as_u32(self.history[..., 1]) >> 8) & 0xFF).float() * 0.25
+
 
 def make_denoiser_state(height: int, width: int, device) -> DenoiserState:
     h = torch.zeros((height, width, _C), dtype=torch.int32, device=device)

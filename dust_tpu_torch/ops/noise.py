@@ -1,8 +1,9 @@
 """Spatio-temporal blue noise tables and the frame's noise fetch.
 
 Port of :mod:`dust_tpu.ops.noise` (the tables are built by the same
-numpy code from the port's copies of the same assets) plus the frame's
-roll-and-tile fetches (``bn_fetch`` / ``bn_fetch_pool`` in
+numpy code from the port's copies of the same assets; the per-texel
+fetch ``BlueNoise.sample``; the host-side ``octant_sort_regions``) plus
+the frame's roll-and-tile fetches (``bn_fetch`` / ``bn_fetch_pool`` in
 :func:`dust_tpu.render.pipeline.render_frame`). The frame takes all of its noise from these tables; the
 port has no random generator.
 """
@@ -14,7 +15,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["BlueNoise", "load_blue_noise", "bn_fetch", "bn_fetch_pool"]
+__all__ = ["BlueNoise", "load_blue_noise", "octant_sort_regions", "bn_fetch",
+           "bn_fetch_pool"]
 
 SIZE = 128
 LAYERS = 64
@@ -34,6 +36,41 @@ class BlueNoise:
         self.unitvec2 = unitvec2
         self.unitvec3 = unitvec3
         self.unitvec3_cosine = unitvec3_cosine
+
+    def sample(self, table: torch.Tensor, pix_xy: torch.Tensor, frame_index,
+               offset=(0, 0), rand=0) -> torch.Tensor:
+        """texelFetch(blue_noise[v], (pix + offset + rand) % 128, layer).
+
+        ``pix_xy``: (..., 2) integer pixel coords; ``rand`` is the
+        per-frame scrambling like push_constants.rand."""
+        layer = frame_index % LAYERS
+        x = (pix_xy[..., 0] + offset[0] + rand) % SIZE
+        y = (pix_xy[..., 1] + offset[1] + rand) % SIZE
+        return table[layer, y, x]
+
+
+def octant_sort_regions(table, rows: int = 8, cols: int = 128) -> torch.Tensor:
+    """Reorder each (rows × cols) region of every layer of an encoded
+    unit-vector table so its texels are grouped by direction octant
+    (a stable lexsort by (sign x, sign y, z)), once, on the host.
+
+    Regions match the HDDA kernel's 8×128-pixel ray tiles, so a tile's
+    cosine rays share an octant run. The per-region multiset of values
+    is unchanged; the per-pixel temporal sequence is no longer STBN.
+    Returns a tensor on ``table``'s device."""
+    t = table.cpu().numpy()
+    L, H, W, C = t.shape
+    out = t.copy()
+    for li in range(L):
+        for y0 in range(0, H, rows):
+            for x0 in range(0, W, cols):
+                reg = out[li, y0:y0 + rows, x0:x0 + cols].reshape(-1, C)
+                v = reg * 2.0 - 1.0
+                key = (v[:, 0] >= 0) * 2 + (v[:, 1] >= 0)
+                order = np.lexsort((v[:, 2], key))
+                out[li, y0:y0 + rows, x0:x0 + cols] = (
+                    reg[order].reshape(rows, cols, C))
+    return torch.as_tensor(out, device=table.device)
 
 
 def _layers(u: np.ndarray, step: float) -> np.ndarray:

@@ -140,8 +140,11 @@ def rotate_vector_by_normal(normal: torch.Tensor,
 
 
 def encode_oct_normal(n: torch.Tensor, signed: bool = False) -> torch.Tensor:
-    """Octahedral map of unit vectors to [0, 1]² (``signed``: [-1, 1]²)."""
-    n = n / n.abs().sum(dim=-1, keepdim=True)
+    """Octahedral map of unit vectors to [0, 1]² (``signed``: [-1, 1]²).
+    The L1 norm adds x, y, z in that order: a reduction kernel on the
+    card may pair them otherwise, which moves the result by an ulp."""
+    a = n.abs()
+    n = n / ((a[..., 0:1] + a[..., 1:2]) + a[..., 2:3])
     wrap = (1.0 - n[..., [1, 0]].abs()) * _sign1(n[..., :2])
     xy = torch.where((n[..., 2] >= 0.0)[..., None], n[..., :2], wrap)
     return xy if signed else xy * 0.5 + 0.5

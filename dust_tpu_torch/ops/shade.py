@@ -113,7 +113,9 @@ def _hit_obj(scene, res, origin_w, dir_w):
 def leaf_attributes(scene, res, origin_w, dir_w, cell_size: float = 4.0):
     """The spatial-hash key of each hit's leaf (final_gather.rchit:38-55):
     ``qpos``, the quantised world leaf centre, and ``face``, the face id
-    of the leaf-box normal at the hit."""
+    of the leaf-box normal at the hit; also ``center_world``, the world
+    leaf centre, and ``aabb_normal``, that normal. (The reference's
+    ``avg_albedo`` reads a compacted leaf pool the port does not keep.)"""
     inst, _o, _d, hit_obj = _hit_obj(scene, res, origin_w, dir_w)
     model = torch.tensor(scene.inst_model, dtype=torch.long,
                          device=inst.device)[inst]
@@ -122,9 +124,11 @@ def leaf_attributes(scene, res, origin_w, dir_w, cell_size: float = 4.0):
     n_world = _inst_xform(scene.obj_to_world, inst, hit_obj - center_obj,
                           False)
     center_w = _inst_xform(scene.obj_to_world, inst, center_obj, True)
+    normal = pk.cubed_normalize(n_world)
     return dict(hit=res.inst >= 0,
                 qpos=torch.trunc(center_w / cell_size).int(),
-                face=pk.normal_to_face_id(pk.cubed_normalize(n_world)))
+                face=pk.normal_to_face_id(normal),
+                center_world=center_w, aabb_normal=normal)
 
 
 def entry_leaf_center(scene, res, origin_w, dir_w):

@@ -45,6 +45,24 @@ class SpatialHash(NamedTuple):
     def capacity(self) -> int:
         return self.table.shape[0] * 4
 
+    # Slot-major field views, for tests and inspection; the 32-bit words
+    # as int64 in [0, 2^32).
+    @property
+    def fingerprint(self) -> torch.Tensor:
+        return as_u32(self.table.reshape(-1, 4)[:, 0])
+
+    @property
+    def radiance(self) -> torch.Tensor:
+        return as_u32(self.table.reshape(-1, 4)[:, 1])
+
+    @property
+    def last_frame(self) -> torch.Tensor:
+        return self.table.reshape(-1, 4)[:, 2]
+
+    @property
+    def sample_count(self) -> torch.Tensor:
+        return self.table.reshape(-1, 4)[:, 3]
+
 
 def make_spatial_hash(capacity: int, device) -> SpatialHash:
     if capacity % 4:

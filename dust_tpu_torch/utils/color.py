@@ -1,8 +1,9 @@
 """Colour-space math on tensors, and the host-side numpy pieces.
 
 Port of :mod:`dust_tpu.utils.color`: the matrices are copies of its
-numpy constants, and :func:`srgb_oetf_np` its numpy ``srgb_oetf`` (the
-importer's average-albedo pack). On tensors, a 3×3 matrix is applied as
+numpy constants, :func:`srgb_oetf` its ``srgb_oetf`` on tensors, and
+:func:`srgb_oetf_np` the same in numpy (the importer's average-albedo
+pack). On tensors, a 3×3 matrix is applied as
 three explicit dot products, so no library matrix kernel (and no TF32) is
 involved on the card.
 
@@ -17,7 +18,8 @@ import torch
 
 __all__ = ["SRGB_TO_ACESCG", "ACESCG_TO_SRGB", "XYZ_TO_ACESCG",
            "ACESCG_TO_XYZ", "apply_mat3", "srgb_to_acescg", "acescg_to_srgb",
-           "xyz_to_acescg", "acescg_to_xyz", "srgb_eotf", "srgb_oetf_np",
+           "xyz_to_acescg", "acescg_to_xyz", "srgb_eotf", "srgb_oetf",
+           "srgb_oetf_np",
            "luminance_rec601"]
 
 # color.glsl sRGB2AECScg / AECScg2sRGB (column-major in GLSL; rows here).
@@ -82,6 +84,13 @@ def srgb_eotf(c):
     """sRGB-encoded -> linear."""
     return torch.where(c < 0.04045, c / 12.92,
                        ((c.abs() + 0.055) / 1.055) ** 2.4)
+
+
+def srgb_oetf(c: torch.Tensor) -> torch.Tensor:
+    """Linear -> sRGB-encoded (tone_map.comp LinearToSRGB)."""
+    return torch.where(c <= 0.0031308, 12.92 * c,
+                       1.055 * torch.clamp(c, min=1e-12) ** (1.0 / 2.4)
+                       - 0.055)
 
 
 def srgb_oetf_np(c: np.ndarray) -> np.ndarray:

@@ -14,7 +14,7 @@ import time
 
 import torch
 
-__all__ = ["device_sync", "FrameDiagnostics", "trace_annotation",
+__all__ = ["device_sync", "best_of", "FrameDiagnostics", "trace_annotation",
            "start_trace", "stop_trace"]
 
 log = logging.getLogger("dust_tpu_torch")
@@ -25,6 +25,38 @@ def device_sync(x: torch.Tensor) -> float:
     finite values, as float32). Reading the sum back synchronises."""
     x = x.float()
     return float(torch.where(torch.isfinite(x), x, 0.0).sum())
+
+
+def best_of(fn, reps: int, device):
+    """Times ``fn()`` after one warm-up call: ``reps`` calls, each between
+    two synchronisations of ``device``. Returns (fn's last result, the
+    best host seconds of a call, the best device milliseconds between
+    CUDA events recorded around a call, or None on the CPU)."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    out = fn()
+    sync()
+    host, dev = float("inf"), None
+    for _ in range(reps):
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            end.record()
+        sync()
+        host = min(host, time.perf_counter() - t0)
+        if cuda:
+            ms = start.elapsed_time(end)
+            dev = ms if dev is None else min(dev, ms)
+    return out, host, dev
 
 
 class FrameDiagnostics:

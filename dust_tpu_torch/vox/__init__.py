@@ -10,3 +10,7 @@
 * :mod:`~dust_tpu_torch.vox.procgen` — the procedural castle, teapot and
   stress scenes.
 """
+
+from dust_tpu_torch.vox.parser import VoxFile, parse_vox, write_vox  # noqa: F401
+from dust_tpu_torch.vox.loader import load_vox_scene, VoxScene, VoxInstance  # noqa: F401
+from dust_tpu_torch.vox.geometry import VoxGeometry, build_geometry  # noqa: F401

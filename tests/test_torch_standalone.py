@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``dust_tpu_torch`` and no
-line of ``chip_smoke.py`` imports the JAX package ``dust_tpu``, and the
+line of ``chip_smoke.py`` imports the JAX package ``dust_tpu``, JAX, or
+the reference's ``tools/`` and ``tests/``, and the
 port's copies of its host code (config, ``.vox`` procgen and loader,
 voxel tree, assets, PNG IO) give what the reference gives. The tests
 import both packages; the port imports only itself."""
@@ -21,7 +22,9 @@ SOURCES = sorted(p.relative_to(REPO).as_posix()
 
 
 def _is_reference(name):
-    return name == "dust_tpu" or name.startswith("dust_tpu.")
+    """The reference package, JAX, and the reference's tools and tests."""
+    return name.split(".")[0] in ("dust_tpu", "jax", "jaxlib", "tools",
+                                  "tests")
 
 
 def test_importing_the_port_loads_nothing_of_the_reference():
