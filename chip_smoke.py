@@ -4,7 +4,8 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
-2. builds the HDDA traversal kernel (dust_tpu_torch/csrc/hdda.cu) with nvcc;
+2. builds the HDDA traversal kernel (dust_tpu_torch/csrc/hdda.cu) with nvcc
+   and the native scene build (dust_tpu_torch/native/voxcore.cpp) with g++;
 3. renders one 1920x1080 castle+teapot frame of the dense-GI configuration
    while recording every traversal launch, then holds the kernel against
    its plain PyTorch version on the card, per mode, on a 65,536-ray
@@ -127,7 +128,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
 23. reservoirs: 2^20 updated three times, packed and unpacked on the card
    and on the CPU from one seed: counts, weights and direction words
    equal, LogLuv words equal on at least 99.99% and at most one
-   log-luminance code apart.
+   log-luminance code apart;
+24. the native scene build (dust_tpu_torch/native/voxcore.cpp, built with
+   g++ from source, on the host): on every model of the castle + teapot
+   and the stress scenes, build_leaves + FlatTree.from_dense_pools and
+   the chebyshev skip field held equal to their plain numpy versions
+   (every geometry field and the block pointers; the distances); then,
+   native and plain in turns, best of 5, with the host's CPU model and
+   core count: load_vox_scene of the castle, the editor's geometry
+   rebuild of the castle after one voxel edit, the castle's skip field,
+   and the isolated splice tier on the card with the share of it that the
+   rebuild takes. Phase 17's edit tiers, which now run native, are
+   printed beside them.
 
 Every config is built and rendered through the bench module
 (dust_tpu_torch/bench.py). Before the result it prints each scene-kernel
@@ -207,6 +219,8 @@ GT_WARMUP = 64
 RMSE_GOLDEN = 0.01
 GT_SLOW_S = 60.0
 RESERVOIRS = 1 << 20
+# The native scene build: timings in turns, best of this many each.
+NATIVE_REPS = 5
 
 
 def _setup(device, width, height, config="gi", capacity=None, pool=None,
@@ -1499,6 +1513,204 @@ def _tools_phase(hdda, dev, card, reset_counts, here):
     return by_path, out
 
 
+def _host_cpu():
+    """The host's CPU model and the cores this process may run on. The
+    model is /proc/cpuinfo's ``model name``, else its vendor, family and
+    model numbers (or an Arm core's implementer and part), with the
+    machine's architecture."""
+    import platform
+
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip() and fields:
+                break                                # the first processor
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    model = fields.get("model name") or ", ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model",
+                                     "CPU implementer", "CPU part")
+        if fields.get(k)) or "no model in /proc/cpuinfo"
+    return f"{model} ({platform.machine()})", len(os.sched_getaffinity(0))
+
+
+def _in_turns(native_fn, plain_fn, reps=NATIVE_REPS):
+    """Best host ms of ``native_fn`` and of ``plain_fn`` over ``reps`` calls
+    each, in turns (native, plain, plain, native, ...); with the first
+    call's results of each."""
+    times = {"native": [], "plain": []}
+    first = {}
+    fns = {"native": native_fn, "plain": plain_fn}
+    for k in range(reps):
+        order = ("native", "plain") if k % 2 == 0 else ("plain", "native")
+        for name in order:
+            t0 = time.perf_counter()
+            out = fns[name]()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            first.setdefault(name, out)
+    return min(times["native"]), min(times["plain"]), first
+
+
+def _geometries_equal(label, a, b):
+    """Every field of two VoxGeometry, dtypes included."""
+    import numpy as np
+
+    pairs = [(f, getattr(a.flat, f), getattr(b.flat, f)) for f in (
+        "leaf_origin", "mask_lo", "mask_hi", "active_lo", "active_hi",
+        "material_ptr", "leaf_grid")]
+    pairs += [(f, getattr(a, f), getattr(b, f))
+              for f in ("avg_albedo", "materials")]
+    for name, x, y in pairs:
+        if not (x.dtype == y.dtype and x.shape == y.shape
+                and np.array_equal(x, y)):
+            raise SystemExit(f"native: {label}: {name} differs from the "
+                             f"plain version")
+    if (tuple(a.size), a.unit_size) != (tuple(b.size), b.unit_size):
+        raise SystemExit(f"native: {label}: size differs")
+
+
+def _native_phase(dev, card, edit_times):
+    """Phase 24: the native scene build (dust_tpu_torch/native), held equal
+    to its plain versions and timed against them on the host. Returns a
+    dict of the phase's numbers."""
+    import numpy as np
+    from dust_tpu_torch import native
+    from dust_tpu_torch.bench_edits import fresh_leaf_voxels
+    from dust_tpu_torch.render import scene as scn
+    from dust_tpu_torch.render.edits import SceneEditor, geometry_voxels
+    from dust_tpu_torch.vox import loader, procgen
+    from dust_tpu_torch.vox.collector import collect_material_indices
+
+    cpu, cores = _host_cpu()
+    host = f"{cpu}, {cores} cores"
+
+    # ---- every model of both scenes: native equal to plain -------------
+    castle = loader.load_vox_scene(procgen.castle_scene_bytes())
+    procgen.add_teapot(castle)
+    stress, _ = procgen.stress_scene()
+    held = []
+    for label, vox in (("castle+teapot", castle), ("stress", stress)):
+        for mid, geo in sorted(vox.geometries.items()):
+            coords, idx = geometry_voxels(geo)
+            occupancy, block_ptr, mats = native.build_leaves(coords, idx)
+            mats_plain, ptr_plain = collect_material_indices(coords, idx)
+            if not (np.array_equal(block_ptr, ptr_plain)
+                    and np.array_equal(mats, mats_plain)):
+                raise SystemExit(f"native: {label} model {mid}: build_leaves "
+                                 f"differs from collect_material_indices")
+            args = (coords, idx, vox.palette, geo.size, geo.unit_size)
+            built = loader.build_model_geometry(*args)
+            what = f"{label} model {mid}"
+            _geometries_equal(what, built,
+                              loader.build_model_geometry_plain(*args))
+            _geometries_equal(what + " as loaded", built, geo)
+            occ = geo.flat.leaf_grid >= 0
+            if not np.array_equal(native.chebyshev(occ),
+                                  scn._chebyshev_plain(occ)):
+                raise SystemExit(f"native: {what}: chebyshev differs from "
+                                 f"the dilation loop")
+            held.append(dict(scene=label, model=mid, voxels=len(coords),
+                             leaves=geo.num_blocks))
+    print("native: build_leaves + from_dense_pools + "
+          "build_geometry_from_flat and chebyshev equal to their plain "
+          "versions on " + ", ".join(
+              f"{h['scene']} model {h['model']} ({h['voxels']} voxels, "
+              f"{h['leaves']} leaves)" for h in held))
+
+    # ---- in turns: native against plain --------------------------------
+    out = dict(library=native.build_library().name, cpu=cpu, cores=cores,
+               held=held)
+    data = procgen.castle_scene_bytes()
+    swap = loader.build_model_geometry
+
+    def load_plain():
+        loader.build_model_geometry = loader.build_model_geometry_plain
+        try:
+            return loader.load_vox_scene(data)
+        finally:
+            loader.build_model_geometry = swap
+
+    nat, plain, first = _in_turns(lambda: loader.load_vox_scene(data),
+                                  load_plain)
+    for mid, g in first["native"].geometries.items():
+        _geometries_equal(f"castle load model {mid}", g,
+                          first["plain"].geometries[mid])
+    out["load_ms"] = dict(native=nat, plain=plain)
+
+    vox = loader.load_vox_scene(data)
+    ed = SceneEditor(vox, scn.build_device_scene(vox, dev))
+    fresh = fresh_leaf_voxels(vox)
+    ed.set_voxel(0, fresh[0], 5)
+    ed._merge_pending(0)
+    geo = vox.geometries[0]
+    nat, plain, first = _in_turns(
+        lambda: ed._rebuild_geometry(0),
+        lambda: loader.build_model_geometry_plain(
+            ed._coords[0], ed._idx[0], vox.palette, geo.size,
+            geo.unit_size))
+    _geometries_equal("castle rebuild", first["native"], first["plain"])
+    out["rebuild_geometry_ms"] = dict(native=nat, plain=plain)
+
+    occ = geo.flat.leaf_grid >= 0
+    nat, plain, first = _in_turns(lambda: scn.chebyshev_distance_field(occ),
+                                  lambda: scn._chebyshev_plain(occ))
+    if not np.array_equal(first["native"], first["plain"]):
+        raise SystemExit("native: the castle's skip field differs")
+    out["chebyshev_ms"] = dict(native=nat, plain=plain)
+
+    # The isolated splice tier (bench_edits' edit: one voxel in a fresh
+    # leaf of the castle), native and plain in turns, and the share of it
+    # that the geometry rebuild takes.
+    rebuild_native = ed._rebuild_geometry
+    inner = []
+
+    def rebuild_timed(mid):
+        t0 = time.perf_counter()
+        g = rebuild_native(mid)
+        inner.append(1e3 * (time.perf_counter() - t0))
+        return g
+
+    def rebuild_plain(mid):
+        g = vox.geometries[mid]
+        return loader.build_model_geometry_plain(
+            ed._coords[mid], ed._idx[mid], vox.palette, g.size, g.unit_size)
+
+    edits = iter(fresh[1:])
+
+    def splice(rebuild):
+        ed._rebuild_geometry = rebuild
+        ed.set_voxel(0, next(edits), 5)
+        scene = ed.refit()
+        int(scene.avg_albedo[0, 0])          # waits for the device
+        if ed.last_refit_mode != "splice":
+            raise SystemExit(f"native: a splice edit took the "
+                             f"{ed.last_refit_mode} tier")
+
+    nat, plain, _ = _in_turns(lambda: splice(rebuild_timed),
+                              lambda: splice(rebuild_plain))
+    ed._rebuild_geometry = rebuild_native
+    out["splice_ms"] = dict(native=nat, plain=plain,
+                            rebuild_geometry_native=min(inner))
+    share = min(inner) / nat
+    ms = {k: out[k] for k in ("load_ms", "rebuild_geometry_ms",
+                              "chebyshev_ms", "splice_ms")}
+    print("native vs plain, best of "
+          f"{NATIVE_REPS} in turns (host ms) on {host}: " + "; ".join(
+              f"{k[:-3]} {v['native']:.2f} / {v['plain']:.2f} "
+              f"({v['plain'] / v['native']:.2f}x)" for k, v in ms.items())
+          + f"; the geometry rebuild is {100 * share:.1f}% of the native "
+          f"splice tier [{card}]")
+    iso = edit_times["isolated"]
+    print(f"native: phase 17's edit tiers of this call (native): staged "
+          f"splice {edit_times['splice_ms']:.2f} ms/frame, forced rebuild "
+          f"{edit_times['rebuild_in_loop_ms']:.1f} ms, isolated splice "
+          f"{iso['splice_ms'][0]:.2f} / {iso['splice_ms'][1]:.2f} and "
+          f"rebuild {iso['rebuild_ms'][0]:.2f} / {iso['rebuild_ms'][1]:.2f} "
+          f"(best / median ms) on {host} [{card}]")
+    out["splice_share"] = share
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1513,7 +1725,7 @@ def main() -> int:
               "(dust_tpu_torch/ not found beside this script)", file=sys.stderr)
         return 1
     sys.path.insert(0, here)
-    from dust_tpu_torch import bench
+    from dust_tpu_torch import bench, native
     from dust_tpu_torch.ops import hdda
     from dust_tpu_torch.tools.rmse import rmse as rmse_np
 
@@ -1535,6 +1747,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = hdda.build_library(verbose=True)
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lib = native.build_library()
+    print(f"build: {lib.name} (g++) in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernel against plain, per mode, on one frame's real rays ---
     ctx = _setup(dev, WIDTH, HEIGHT)
@@ -1708,6 +1923,9 @@ def main() -> int:
     tool_launches, tools = _tools_phase(hdda, dev, card, reset_counts, here)
     by_path.update(tool_launches)
 
+    # ---- 24. the native scene build -------------------------------------
+    native_build = _native_phase(dev, card, edit_times)
+
     for k in kernels:
         if k["name"].startswith("hdda_scene<"):
             mode = k["name"][len("hdda_scene<"):-1]
@@ -1736,7 +1954,7 @@ def main() -> int:
                                in loop_frame_ms.items()}
     print(json.dumps({"eager_backend": eager, "gates": gates,
                       "edits": edit_times, "flythrough_sharded": sharded,
-                      "tools": tools}))
+                      "tools": tools, "native": native_build}))
     for mode in hdda.MODES:
         h = stress_held[mode]
         print(f"stress hdda_scene<{mode}>: {h['ms']:.3f} ms per launch at "

@@ -36,10 +36,16 @@ def mean_bin(radiance: torch.Tensor, settings: ExposureSettings):
     return _bins(radiance, settings).float().sum()
 
 
-def adapt_average_luminance(previous_avg, num_pixels: int,
-                            settings: ExposureSettings, weighted):
+def adapt_average_luminance(histogram, previous_avg, num_pixels: int,
+                            settings: ExposureSettings, weighted=None):
     """Index-weighted mean -> log-space luminance, then temporal
-    adaptation toward it."""
+    adaptation toward it. Pass ``weighted`` (from :func:`mean_bin`) to
+    skip the histogram; otherwise it is ``sum(histogram * bin_index)``
+    in float32."""
+    if weighted is None:
+        idx = torch.arange(settings.num_bins, dtype=torch.float32,
+                           device=histogram.device)
+        weighted = (histogram.float() * idx).sum()
     weighted_log_avg = weighted / max(num_pixels, 1.0) - 1.0
     avg_lum = torch.exp2((weighted_log_avg / 254.0)
                          * settings.log_luminance_range

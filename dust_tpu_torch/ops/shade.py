@@ -9,6 +9,7 @@ import torch
 
 from dust_tpu_torch.ops import packing as pk
 from dust_tpu_torch.ops.fp import fma
+from dust_tpu_torch.vox.geometry import unpack_r10g10b10a2
 
 __all__ = ["resolve_hits", "leaf_attributes", "entry_face",
            "entry_leaf_center"]
@@ -114,8 +115,8 @@ def leaf_attributes(scene, res, origin_w, dir_w, cell_size: float = 4.0):
     """The spatial-hash key of each hit's leaf (final_gather.rchit:38-55):
     ``qpos``, the quantised world leaf centre, and ``face``, the face id
     of the leaf-box normal at the hit; also ``center_world``, the world
-    leaf centre, and ``aabb_normal``, that normal. (The reference's
-    ``avg_albedo`` reads a compacted leaf pool the port does not keep.)"""
+    leaf centre, ``aabb_normal``, that normal, and ``avg_albedo``, the
+    leaf's sRGB-encoded average albedo as (N, 4) RGBA."""
     inst, _o, _d, hit_obj = _hit_obj(scene, res, origin_w, dir_w)
     model = torch.tensor(scene.inst_model, dtype=torch.long,
                          device=inst.device)[inst]
@@ -128,7 +129,8 @@ def leaf_attributes(scene, res, origin_w, dir_w, cell_size: float = 4.0):
     return dict(hit=res.inst >= 0,
                 qpos=torch.trunc(center_w / cell_size).int(),
                 face=pk.normal_to_face_id(normal),
-                center_world=center_w, aabb_normal=normal)
+                center_world=center_w, aabb_normal=normal,
+                avg_albedo=unpack_r10g10b10a2(scene.avg_albedo[model, row]))
 
 
 def entry_leaf_center(scene, res, origin_w, dir_w):

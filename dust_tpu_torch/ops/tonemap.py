@@ -78,11 +78,15 @@ def oetf(c: torch.Tensor, transfer: str = "srgb") -> torch.Tensor:
 
 
 def tonemap(radiance: torch.Tensor, albedo_srgb: torch.Tensor, exposure,
-            transfer: str = "srgb") -> torch.Tensor:
-    """Radiance (linear ACEScg) × linearised albedo, exposure, ACES fit,
-    output transfer, clamped to [0, 1]."""
+            transfer: str = "srgb", color_matrix=None) -> torch.Tensor:
+    """Radiance (linear ACEScg) × linearised albedo, exposure, an optional
+    3×3 ``color_matrix`` (applied as ``mapped @ color_matrix.T``), ACES
+    fit, output transfer, clamped to [0, 1]."""
     albedo_lin = colorlib.srgb_eotf(albedo_srgb)
     srgb = colorlib.acescg_to_srgb(radiance) * albedo_lin
     mapped = colorlib.srgb_to_acescg(srgb) * exposure
+    if color_matrix is not None:
+        mapped = colorlib.apply_mat3(mapped,
+                                     np.asarray(color_matrix, np.float32))
     mapped = aces_fitted(mapped)
     return torch.clamp(oetf(mapped, transfer), 0.0, 1.0)

@@ -51,12 +51,29 @@ from dust_tpu_torch.render.scene import (DeviceScene, apply_leaf_patch,
                                          build_device_scene, material_layout,
                                          patch_gi_albedo, splice_model)
 from dust_tpu_torch.utils import color as colorlib
-from dust_tpu_torch.vox.collector import collect_material_indices
-from dust_tpu_torch.vox.geometry import build_geometry, pack_avg_albedo
-from dust_tpu_torch.vox.loader import VoxScene
-from dust_tpu_torch.voxtree.tree import VoxTree
+from dust_tpu_torch.vox.geometry import pack_avg_albedo
+from dust_tpu_torch.vox.loader import (VoxScene, build_model_geometry,
+                                       build_model_geometry_plain)
 
 __all__ = ["SceneEditor"]
+
+
+def geometry_voxels(geo):
+    """A model's voxels decoded from its flat pools: coords (N, 3) int64
+    in (leaf row, bit) order and palette indices (N,) uint8."""
+    flat = geo.flat
+    if not flat.num_leaves:
+        return np.zeros((0, 3), np.int64), np.zeros((0,), np.uint8)
+    occ = flat.occupancy_u64()
+    bits = ((occ[:, None] >> np.arange(64, dtype=np.uint64))
+            & np.uint64(1)).astype(bool)                    # (L, 64)
+    rank = np.cumsum(bits, axis=1) - 1                       # within-leaf k
+    rows, bit = np.nonzero(bits)
+    off = np.stack([bit >> 4, (bit >> 2) & 3, bit & 3], 1)
+    coords = flat.leaf_origin[rows].astype(np.int64) + off
+    midx = geo.materials[flat.material_ptr[rows].astype(np.int64)
+                         + rank[rows, bit]].astype(np.uint8)
+    return coords, midx
 
 
 class SceneEditor:
@@ -76,22 +93,7 @@ class SceneEditor:
         self._idx: dict[int, np.ndarray] = {}
         self._pending: dict[int, dict[tuple[int, int, int], int | None]] = {}
         for mid in self._model_ids:
-            geo = vox_scene.geometries[mid]
-            flat = geo.flat
-            occ = flat.occupancy_u64()
-            if flat.num_leaves:
-                bits = ((occ[:, None] >> np.arange(64, dtype=np.uint64))
-                        & np.uint64(1)).astype(bool)        # (L, 64)
-                rank = np.cumsum(bits, axis=1) - 1           # within-leaf k
-                rows, bit = np.nonzero(bits)
-                off = np.stack([bit >> 4, (bit >> 2) & 3, bit & 3], 1)
-                coords = flat.leaf_origin[rows].astype(np.int64) + off
-                midx = geo.materials[
-                    flat.material_ptr[rows].astype(np.int64)
-                    + rank[rows, bit]].astype(np.uint8)
-            else:
-                coords = np.zeros((0, 3), np.int64)
-                midx = np.zeros((0,), np.uint8)
+            coords, midx = geometry_voxels(vox_scene.geometries[mid])
             self._coords[mid] = coords
             self._idx[mid] = midx
             self._pending[mid] = {}
@@ -413,14 +415,17 @@ class SceneEditor:
     def _rebuild_geometry(self, mid: int):
         """Host geometry rebuild of one model from the editor's (merged)
         coord and palette arrays: the costly part of the splice tier, safe
-        to run off the render thread (numpy only; touches no editor
-        state)."""
+        to run off the render thread (the native build releases the
+        interpreter lock; touches no editor state)."""
         coords = self._coords[mid]
         geo_old = self.vox_scene.geometries[mid]
-        tree = VoxTree.from_voxels(coords)
-        mats, block_ptr = collect_material_indices(coords, self._idx[mid])
-        return build_geometry(tree, mats, block_ptr, self.vox_scene.palette,
-                              geo_old.size, geo_old.unit_size)
+        args = (coords, self._idx[mid], self.vox_scene.palette, geo_old.size,
+                geo_old.unit_size)
+        if len(coords):
+            return build_model_geometry(*args)
+        # A model emptied by its edits: the reference builds it with the
+        # tree, not the native pass (a rule about the data, not a fallback).
+        return build_model_geometry_plain(*args)
 
     def _refit(self) -> DeviceScene:
         if not self._dirty:

@@ -700,7 +700,7 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
     if sharded:
         weighted = parallel.all_reduce_sum(mesh, weighted)
     new_avg = exposurelib.adapt_average_luminance(
-        state.exposure_avg, n, settings.exposure, weighted)
+        None, state.exposure_avg, n, settings.exposure, weighted=weighted)
     exposure = exposurelib.exposure_value(new_avg)
     albedo_img = img["albedo"][own]
     output = tonemaplib.tonemap(denoised, albedo_img, exposure, "srgb")

@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from dust_tpu_torch import native
 from dust_tpu_torch.vox.loader import VoxScene
 from dust_tpu_torch.ops.hdda import build_hdda_tables, stack_tables
 
@@ -41,8 +42,17 @@ MAX_SKIP = 63  # distances are clamped; any value >= 1 is a valid skip
 def chebyshev_distance_field(occupied: np.ndarray,
                              max_dist: int = MAX_SKIP) -> np.ndarray:
     """Chebyshev (L-infinity) distance to the nearest occupied cell of a
-    (64, 64, 64) grid, clamped to ``max_dist``; occupied cells get 0.
-    Iterative 3³ dilation in numpy."""
+    (64, 64, 64) block grid, clamped to ``max_dist``; occupied cells get
+    0. The native two-pass transform; another shape raises ``ValueError``,
+    as the reference's dilation loop does for every shape but 64³."""
+    return native.chebyshev(occupied.astype(bool), max_dist)
+
+
+def _chebyshev_plain(occupied: np.ndarray,
+                     max_dist: int = MAX_SKIP) -> np.ndarray:
+    """The plain version of :func:`dust_tpu_torch.native.chebyshev`:
+    the reference's iterative 3³ dilation in numpy, on a (64, 64, 64)
+    grid."""
     occ = occupied.astype(bool)
     dist = np.full(occ.shape, max_dist, dtype=np.int32)
     dist[occ] = 0

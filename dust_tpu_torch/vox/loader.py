@@ -17,9 +17,10 @@ transform; Shape nodes become instances. ``to_transform``
 (loader.rs:176-204) converts translation/rotation/size into a y-up affine
 with the model-center pivot and odd-size half-voxel offset.
 
-The port's copy of :mod:`dust_tpu.vox.loader`. It always builds a model's
-leaves with numpy (:meth:`VoxTree.from_voxels` and
-:func:`collect_material_indices`); it has no native build.
+The port's copy of :mod:`dust_tpu.vox.loader`. It builds a model's leaves
+with the native library (:func:`dust_tpu_torch.native.build_leaves`, then
+:meth:`FlatTree.from_dense_pools`), as the reference does wherever it
+has a compiler; a failed build raises.
 """
 
 from __future__ import annotations
@@ -28,12 +29,15 @@ import dataclasses
 
 import numpy as np
 
+from dust_tpu_torch import native
 from dust_tpu_torch.vox import parser as vp
 from dust_tpu_torch.vox.collector import collect_material_indices
-from dust_tpu_torch.vox.geometry import VoxGeometry, build_geometry
-from dust_tpu_torch.voxtree.tree import VoxTree
+from dust_tpu_torch.vox.geometry import (VoxGeometry, build_geometry,
+                                         build_geometry_from_flat)
+from dust_tpu_torch.voxtree.tree import FlatTree, VoxTree
 
-__all__ = ["VoxScene", "VoxInstance", "load_vox_scene", "to_transform"]
+__all__ = ["VoxScene", "VoxInstance", "load_vox_scene", "to_transform",
+           "build_model_geometry", "build_model_geometry_plain"]
 
 # Change of basis C: vox (x,y,z) -> engine (x, z, -y). det(C) = +1.
 _C = np.array([[1, 0, 0], [0, 0, 1], [0, -1, 0]], dtype=np.float64)
@@ -95,6 +99,31 @@ def to_transform(translation, rotation, size) -> np.ndarray:
     return a
 
 
+def build_model_geometry(coords: np.ndarray, palette_idx: np.ndarray,
+                         palette: np.ndarray, size, unit_size: float = 1.0
+                         ) -> VoxGeometry:
+    """One model's flat geometry from its voxel list (engine orientation;
+    duplicates last write wins): the native per-block pass
+    (:func:`dust_tpu_torch.native.build_leaves`), then
+    :meth:`FlatTree.from_dense_pools` and :func:`build_geometry_from_flat`
+    (the reference loader's native path, ``loader.py:142-150``)."""
+    occupancy, block_ptr, materials = native.build_leaves(coords, palette_idx)
+    return build_geometry_from_flat(
+        FlatTree.from_dense_pools(occupancy, block_ptr), materials, palette,
+        size, unit_size)
+
+
+def build_model_geometry_plain(coords: np.ndarray, palette_idx: np.ndarray,
+                               palette: np.ndarray, size,
+                               unit_size: float = 1.0) -> VoxGeometry:
+    """The plain version of :func:`build_model_geometry`, in numpy:
+    :meth:`VoxTree.from_voxels`, :func:`collect_material_indices` and
+    :func:`build_geometry`."""
+    materials, block_ptr = collect_material_indices(coords, palette_idx)
+    return build_geometry(VoxTree.from_voxels(coords), materials, block_ptr,
+                          palette, size, unit_size)
+
+
 def load_vox_scene(data: bytes, unit_size: float = 1.0) -> VoxScene:
     """Parse + build a complete scene from ``.vox`` bytes."""
     f = vp.parse_vox(data)
@@ -140,11 +169,8 @@ def load_vox_scene(data: bytes, unit_size: float = 1.0) -> VoxScene:
             [v[:, 0], v[:, 2], model.size[1] - 1 - v[:, 1]], axis=1
         )
         size = (model.size[0], model.size[2], model.size[1])
-        tree = VoxTree.from_voxels(coords)
-        materials, block_ptr = collect_material_indices(coords, v[:, 3])
-        geometries[mid] = build_geometry(
-            tree, materials, block_ptr, f.palette, size, unit_size
-        )
+        geometries[mid] = build_model_geometry(coords, v[:, 3], f.palette,
+                                               size, unit_size)
 
     return VoxScene(
         geometries=geometries,

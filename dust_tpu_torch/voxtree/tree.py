@@ -323,6 +323,39 @@ class FlatTree:
     material_ptr: np.ndarray  # (L,) uint32
     leaf_grid: np.ndarray  # (64,64,64) int32 → leaf row or -1
 
+    @classmethod
+    def from_dense_pools(cls, occupancy: np.ndarray, material_ptr: np.ndarray,
+                         active: np.ndarray | None = None) -> "FlatTree":
+        """Build directly from dense 64³ per-block arrays (the native
+        voxcore fast path): ``occupancy`` u64 masks, ``material_ptr`` the
+        collector prefix sums. Rows come out block-linear ordered, same
+        as :meth:`VoxTree.flatten`."""
+        occupancy = occupancy.reshape(-1)
+        nz = np.flatnonzero(occupancy)
+        # Dense pools use the collector's linear order bx + by*64 + bz*64²
+        # (collector.rs:33-40); decode, then sort rows into the canonical
+        # x-major block-linear order.
+        bx = nz & 63
+        by = (nz >> 6) & 63
+        bz = nz >> 12
+        order = np.argsort(hierarchy_key(np.stack([bx, by, bz], axis=1)))
+        nz = nz[order]
+        bx, by, bz = bx[order], by[order], bz[order]
+        occ = occupancy[nz]
+        act = occ if active is None else active.reshape(-1)[nz]
+        origins = (np.stack([bx, by, bz], axis=1) << LEAF_LOG2).astype(np.int32)
+        grid = np.full((BLOCKS_PER_AXIS,) * 3, -1, dtype=np.int32)
+        grid[bx, by, bz] = np.arange(len(nz), dtype=np.int32)
+        return cls(
+            leaf_origin=origins,
+            mask_lo=(occ & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            mask_hi=(occ >> np.uint64(32)).astype(np.uint32),
+            active_lo=(act & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            active_hi=(act >> np.uint64(32)).astype(np.uint32),
+            material_ptr=material_ptr.reshape(-1)[nz].astype(np.uint32),
+            leaf_grid=grid,
+        )
+
     @property
     def num_leaves(self) -> int:
         return len(self.leaf_origin)

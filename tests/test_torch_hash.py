@@ -20,7 +20,8 @@ writes out). Tolerances:
   order, and on these cases the running mean and the decode of the old
   radiance round as the reference's); ``hash_get`` radiance within 1e-6
   of the largest, as the decode;
-* leaf centres, keys and faces: bit for bit.
+* leaf centres, keys, faces, leaf-box normals and average albedos:
+  bit for bit.
 """
 
 import functools
@@ -332,6 +333,8 @@ def test_leaf_attributes(teapot, mode):
         jr, o, d)
     got = tshade.leaf_attributes(ts, tr, tensor(o), tensor(d))
     hit = tr.hit.numpy()
-    for k in ("hit", "qpos", "face"):
+    assert sorted(got) == sorted(ref)
+    for k in ("hit", "qpos", "face", "center_world", "aabb_normal",
+              "avg_albedo"):
         np.testing.assert_array_equal(got[k].numpy()[hit],
                                       np.asarray(ref[k])[hit], err_msg=k)

@@ -380,8 +380,9 @@ def test_exposure_and_tonemap():
     prev = jnp.asarray(0.7, jnp.float32)
     ja = jexp.adapt_average_luminance(None, prev, img.shape[0] * img.shape[1],
                                       es, weighted=jw)
-    ta = texp.adapt_average_luminance(torch.tensor(0.7), img.shape[0] * img.shape[1],
-                                      es, tw)
+    ta = texp.adapt_average_luminance(None, torch.tensor(0.7),
+                                      img.shape[0] * img.shape[1], es,
+                                      weighted=tw)
     _close(ta, ja, rtol=1e-5, atol=1e-5)
     _close(texp.exposure_value(ta), jexp.exposure_value(ja), rtol=1e-5, atol=1e-5)
     alb = rng.uniform(size=(72, 96, 3)).astype(np.float32)
@@ -392,3 +393,46 @@ def test_exposure_and_tonemap():
     for tf in ttone.TRANSFER_FUNCTIONS:
         _close(ttone.oetf(tensor(c), tf), jtone.oetf(jnp.asarray(c), tf),
                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [6, 7])
+def test_adapt_average_luminance_histogram_path(seed):
+    """The histogram path (``weighted`` None): the port's
+    ``luminance_histogram`` of a seeded image equals the reference's, and
+    the adapted luminance from it equals the reference's bit for bit."""
+    rng = np.random.default_rng(seed)
+    es = ExposureSettings()
+    img = rng.gamma(1.5, 0.5, size=(72, 96, 3)).astype(np.float32)
+    img[:10] = 0.001
+    jh = jexp.luminance_histogram(jnp.asarray(img), es)
+    th = texp.luminance_histogram(tensor(img), es)
+    np.testing.assert_array_equal(_np(th), np.asarray(jh))
+    n = img.shape[0] * img.shape[1]
+    ja = jexp.adapt_average_luminance(jh, jnp.asarray(0.7, jnp.float32), n,
+                                      es)
+    ta = texp.adapt_average_luminance(th, torch.tensor(0.7), n, es)
+    assert ta.dtype == torch.float32
+    np.testing.assert_array_equal(_np(ta), np.asarray(ja))
+
+
+def test_tonemap_color_matrix():
+    """A non-identity 3x3 colour matrix between exposure and the ACES
+    fit, against the reference's float32 einsum (within the tonemap
+    tolerance of this file: XLA's CPU dot contracts some of the three
+    products into fused multiply-adds, the port rounds each, so the
+    product differs by up to 2 ulps before the fit)."""
+    rng = np.random.default_rng(9)
+    img = rng.gamma(1.5, 0.5, size=(72, 96, 3)).astype(np.float32)
+    alb = rng.uniform(size=(72, 96, 3)).astype(np.float32)
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    m = (q * rng.uniform(0.8, 1.2, size=3)).astype(np.float32)
+    exp = np.float32(1.7)
+    for transfer in ("srgb", "linear"):
+        ref = jtone.tonemap(jnp.asarray(img), jnp.asarray(alb), exp,
+                            transfer, color_matrix=m)
+        got = ttone.tonemap(tensor(img), tensor(alb), torch.tensor(exp),
+                            transfer, color_matrix=m)
+        _close(got, ref, rtol=1e-5, atol=1e-5)
+        plain = ttone.tonemap(tensor(img), tensor(alb), torch.tensor(exp),
+                              transfer)
+        assert (got - plain).abs().max() > 0.05

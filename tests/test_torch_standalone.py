@@ -79,20 +79,30 @@ def test_no_source_imports_the_reference(path):
 
 
 def test_loader_has_one_build_path():
-    """The port's loader builds leaves with numpy only: no try, no native
-    module, no availability check."""
+    """The port's loader builds every model with the native library: no
+    try, no availability check, and ``load_vox_scene`` reaches no numpy
+    build (the plain version stays beside it for the tests and for the
+    editor's emptied models)."""
     tree = ast.parse((PORT / "vox" / "loader.py").read_text())
-    names = set()
-    for node in ast.walk(tree):
-        assert not isinstance(node, ast.Try)
-        if isinstance(node, ast.Name):
-            names.add(node.id)
-        elif isinstance(node, ast.Attribute):
-            names.add(node.attr)
-        elif isinstance(node, ast.ImportFrom):
-            names.update(a.name for a in node.names)
-    assert not names & {"native", "available", "build_leaves"}
-    assert {"from_voxels", "collect_material_indices"} <= names
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+    def names(node):
+        out = set()
+        for n in ast.walk(node):
+            assert not isinstance(n, ast.Try)
+            if isinstance(n, ast.Name):
+                out.add(n.id)
+            elif isinstance(n, ast.Attribute):
+                out.add(n.attr)
+        return out
+
+    assert "available" not in names(tree)
+    load = names(fns["load_vox_scene"])
+    assert "build_model_geometry" in load
+    assert not load & {"build_model_geometry_plain", "from_voxels",
+                       "collect_material_indices", "build_geometry"}
+    assert {"build_leaves", "from_dense_pools"} <= names(
+        fns["build_model_geometry"])
 
 
 @pytest.mark.parametrize("name", ["teapot_scene_bytes", "castle_scene_bytes"])

@@ -272,11 +272,11 @@ def test_reexports_have_counterparts(sub):
             assert getattr(port, name).__name__ == getattr(ref, name).__name__
 
 
-# Modules and methods not ported, and why: ROADMAP.md, Queue 1 item 8.
-# The Pallas module's counterpart is ops/hdda.py, under the port's own
-# names; FlatTree.from_dense_pools serves the native build only.
-NOT_PORTED = {"native/__init__.py", "ops/pallas_trace.py", "ops/trace_ref.py"}
-METHODS_NOT_PORTED = {"FlatTree.from_dense_pools"}
+# Modules and methods not ported, and why: ROADMAP.md, Queue 1. The
+# Pallas module's counterpart is ops/hdda.py, under the port's own names;
+# the numpy trace oracle never runs on a device.
+NOT_PORTED = {"ops/pallas_trace.py", "ops/trace_ref.py"}
+METHODS_NOT_PORTED = set()
 
 
 def _public_defs(path: Path) -> set:
@@ -309,3 +309,101 @@ def test_every_public_function_has_a_counterpart(path):
     missing = (_public_defs(REPO / "dust_tpu" / path) - _public_defs(port)
                - METHODS_NOT_PORTED)
     assert not missing, f"dust_tpu_torch/{path} lacks {sorted(missing)}"
+
+
+def _public_params(path: Path) -> dict:
+    """Each public function's and method's parameter names, in order
+    (``*args`` and ``**kwargs`` with their stars)."""
+    def params(fn):
+        a = fn.args
+        names = [x.arg for x in a.posonlyargs + a.args]
+        names += [f"*{a.vararg.arg}"] if a.vararg else []
+        names += [x.arg for x in a.kwonlyargs]
+        return names + ([f"**{a.kwarg.arg}"] if a.kwarg else [])
+
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            out[node.name] = params(node)
+        if isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            out.update((f"{node.name}.{m.name}", params(m)) for m in node.body
+                       if isinstance(m, ast.FunctionDef)
+                       and not m.name.startswith("_"))
+    return out
+
+
+_DEVICE = ("device: the port's makers and builders take the torch device "
+           "to allocate on; the reference's arrays go where JAX puts them")
+_XP = ("xp: the reference's colour helpers serve numpy and jax.numpy; the "
+       "port's take tensors only (numpy's colour math is srgb_oetf_np)")
+_ROWS = ("rows: the port computes a slice of the image's or the table's "
+         "rows, which the ray-sharded frame gives each rank")
+_POOLS = ("the reference's compacted material and leaf-attribute pools, "
+          "which the port does not keep (ROADMAP.md Queue 1: the frame "
+          "reads voxel_attr)")
+# Deliberate differences of parameter lists: the port's parameters of
+# each such function or method, and why they differ.
+PARAMS_DIFFER = {
+    "ops/camera.py::camera_settings": (
+        ["camera_to_world", "fov", "near", "far", "width", "height",
+         "device"], _DEVICE),
+    "ops/denoise.py::make_denoiser_state": (
+        ["height", "width", "device"], _DEVICE),
+    "ops/noise.py::load_blue_noise": (["device"], _DEVICE),
+    "ops/reservoir.py::make_reservoirs": (["n", "device"], _DEVICE),
+    "ops/sky.py::bake_sky": (["s", "device"], _DEVICE),
+    "ops/spatial_hash.py::make_spatial_hash": (
+        ["capacity", "device"], _DEVICE),
+    "render/pipeline.py::make_frame_state": (
+        ["settings", "scene", "device"], _DEVICE),
+    "render/scene.py::build_device_scene": (["scene", "device"], _DEVICE),
+    "ops/denoise.py::denoise": (
+        ["state", "radiance", "hitdist", "depth", "normal", "world_pos",
+         "motion", "prev_view_proj", "settings", "rows"], _ROWS),
+    "ops/gi_cache.py::refresh_dense_albedo": (
+        ["cache", "scene", "rows"], _ROWS),
+    **{f"utils/color.py::{name}": ([arg], _XP) for name, arg in (
+        ("acescg_to_srgb", "v"), ("acescg_to_xyz", "v"),
+        ("luminance_rec601", "rgb"), ("srgb_eotf", "c"), ("srgb_oetf", "c"),
+        ("srgb_to_acescg", "v"), ("xyz_to_acescg", "v"))},
+    "vox/geometry.py::unpack_r10g10b10a2": (["packed"], _XP),
+    "parallel/mesh.py::make_mesh": (
+        ["group"], "the mesh is this process's rank of a torch.distributed "
+        "group, where the reference's is a jax Mesh over local devices"),
+    "parallel/mesh.py::ray_sharding": (
+        ["mesh", "length"], "it returns this rank's [start, stop) of an "
+        "axis of that length, where the reference's returns a "
+        "NamedSharding that needs none"),
+    "render/pipeline.py::render_frame": (
+        ["scene", "state", "cam", "sky_state", "bn_cosine", "bn_scalar",
+         "settings", "tile", "return_aux", "mesh"],
+        "mesh in place of ray_sharding: each rank renders its chunk of "
+        "the rays on its process group"),
+    "render/scene.py::splice_model": (
+        ["device", "slot", "geo", "mat_cap", "palette"],
+        "no mat_base, and the palette to refill voxel_attr: " + _POOLS),
+    "render/scene.py::apply_leaf_patch": (
+        ["device", "model", "row", "mask_lo", "mask_hi", "alb", "vox"],
+        "no attr, fg, gi_table, gi_rows, gi_alb: " + _POOLS
+        + "; the editor patches the GI tables itself"),
+}
+
+
+@pytest.mark.parametrize("path", REF_MODULES)
+def test_public_parameters_match_reference(path):
+    """Every public function and method that the port and a reference
+    module both define takes the reference's parameters, in its order,
+    apart from the reasoned differences of PARAMS_DIFFER."""
+    ref = _public_params(REPO / "dust_tpu" / path)
+    port = _public_params(REPO / "dust_tpu_torch" / path)
+    for name in sorted(ref.keys() & port.keys()):
+        allowed = PARAMS_DIFFER.get(f"{path}::{name}")
+        if allowed is None:
+            assert port[name] == ref[name], (
+                f"dust_tpu_torch/{path}: {name}{tuple(port[name])}, "
+                f"reference {name}{tuple(ref[name])}")
+        else:
+            assert port[name] == allowed[0] != ref[name], (name, port[name])
+    listed = {k.split("::")[1] for k in PARAMS_DIFFER
+              if k.startswith(f"{path}::")}
+    assert listed <= ref.keys() & port.keys(), listed
