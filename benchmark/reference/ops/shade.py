@@ -1,0 +1,139 @@
+"""Hit-attribute resolution (port of :mod:`dust_tpu.ops.shade`): the
+primary G-buffer from one voxel-row gather, the spatial-hash key of a
+hit's leaf, and the analytic entry face and leaf centre of rough
+hits."""
+
+from __future__ import annotations
+
+import torch
+
+from benchmark.reference.ops import packing as pk
+from benchmark.reference.ops.fp import fma
+
+__all__ = ["resolve_hits", "leaf_attributes", "entry_face",
+           "entry_leaf_center"]
+
+
+def _inst_xform(arrs, inst, p, with_translation: bool):
+    """Apply each ray's instance affine (a select over the few instances)."""
+    px, py, pz = p.unbind(-1)
+
+    def apply(i):
+        m = arrs[i]
+        o = [fma(m[k, 2], pz, fma(m[k, 0], px, m[k, 1] * py))
+             for k in range(3)]
+        if with_translation:
+            o = [o[k] + m[k, 3] for k in range(3)]
+        return o
+
+    out = apply(0)
+    for i in range(1, arrs.shape[0]):
+        cand = apply(i)
+        sel = inst == i
+        out = [torch.where(sel, cand[k], out[k]) for k in range(3)]
+    return torch.stack(out, dim=-1)
+
+
+def _along(o, d, t):
+    """o + d * t[:, None], one rounding per component."""
+    return fma(d, t[:, None], o)
+
+
+def resolve_hits(scene, res, origin_w, dir_w):
+    """Per-pixel primary-hit attributes; miss lanes carry the miss values
+    (albedo 1, depth inf, motion 0)."""
+    hit = res.inst >= 0
+    inst = torch.clamp(res.inst, min=0).long()
+    base = torch.tensor(scene.inst_leaf_base, dtype=torch.long,
+                        device=inst.device)
+    flat_row = base[inst] + torch.clamp(res.row, min=0).long()
+
+    bit = torch.clamp(res.bit, min=0).long()
+    vid = flat_row * 64 + bit
+    rows = scene.voxel_attr.shape[0]
+    prow = scene.voxel_attr[torch.clamp(vid >> 4, 0, rows - 1)]
+    rgba = torch.gather(prow, 1, (vid & 15)[:, None])[:, 0].long() & 0xFFFFFFFF
+
+    o_obj = _inst_xform(scene.world_to_obj, inst, origin_w, True)
+    d_obj = _inst_xform(scene.world_to_obj, inst, dir_w, False)
+    t = torch.where(hit, res.t, 0.0)
+    hit_obj = _along(o_obj, d_obj, t)
+
+    # Leaf origin from the hit point: step 0.05 voxels into the hit voxel,
+    # floor, subtract the in-leaf offset, snap to the 4-voxel lattice.
+    off = torch.stack([(bit >> 4) & 3, (bit >> 2) & 3, bit & 3], dim=-1)
+    dlen = pk.norm3(d_obj, keepdim=True)
+    p_in = fma(d_obj / torch.clamp(dlen, min=1e-20),
+               torch.full_like(dlen, 0.05), hit_obj)
+    vhat = torch.floor(p_in).long()
+    leaf_origin = ((vhat - off + 2) >> 2) << 2
+    box_center = leaf_origin.float() + off.float() + 0.5
+
+    normal_obj = pk.cubed_normalize(hit_obj - box_center)
+    normal_w = _inst_xform(scene.obj_to_world, inst, normal_obj, False)
+    normal_w = normal_w / torch.clamp(pk.norm3(normal_w, keepdim=True),
+                                      min=1e-8)
+
+    palette_idx = (rgba >> 24) & 0xFF
+    albedo = torch.stack([rgba & 0xFF, (rgba >> 8) & 0xFF, (rgba >> 16) & 0xFF,
+                          torch.full_like(rgba, 255)], dim=-1).float() / 255.0
+    albedo = torch.where(hit[:, None], albedo, 1.0)
+
+    hit_w = _along(origin_w, dir_w, t)
+    hit_model = _along(o_obj, d_obj, t)
+    prev_w = _inst_xform(scene.prev_obj_to_world, inst, hit_model, True)
+    motion = torch.where(hit[:, None], prev_w - hit_w, 0.0)
+
+    # | 8 bit voxel id | 8 bit palette | 16 bit instance | (as int64)
+    voxel_id = torch.where(hit, (bit << 24) | (palette_idx << 16)
+                           | (inst & 0xFFFF), 0)
+    return dict(
+        hit=hit,
+        inst=inst,
+        depth=torch.where(hit, res.t, float("inf")),
+        albedo=albedo,
+        normal=torch.where(hit[:, None], normal_w, 0.0),
+        motion=motion,
+        voxel_id=voxel_id,
+        world_pos=torch.where(hit[:, None], hit_w, 0.0),
+        palette_idx=palette_idx,
+    )
+
+
+def _hit_obj(scene, res, origin_w, dir_w):
+    """(inst, object-space origin and direction, object-space hit point)
+    of each ray; miss lanes take instance 0 and t = 0."""
+    inst = torch.clamp(res.inst, min=0).long()
+    o_obj = _inst_xform(scene.world_to_obj, inst, origin_w, True)
+    d_obj = _inst_xform(scene.world_to_obj, inst, dir_w, False)
+    t = torch.where(res.inst >= 0, res.t, 0.0)
+    return inst, o_obj, d_obj, _along(o_obj, d_obj, t)
+
+
+def entry_leaf_center(scene, res, origin_w, dir_w):
+    """World centre of a rough hit's leaf: the hit lies on the leaf box's
+    entry face, so a step of 0.05 voxels into the leaf, floored to the
+    4-voxel lattice, gives the leaf origin."""
+    inst, _o, d_obj, hit_obj = _hit_obj(scene, res, origin_w, dir_w)
+    dlen = pk.norm3(d_obj, keepdim=True)
+    p_in = fma(d_obj / torch.clamp(dlen, min=1e-20),
+               torch.full_like(dlen, 0.05), hit_obj)
+    center_obj = torch.floor(p_in * 0.25) * 4.0 + 2.0
+    return _inst_xform(scene.obj_to_world, inst, center_obj, True)
+
+
+def entry_face(scene, res, origin_w, dir_w):
+    """World-space cube-face id of a rough hit: the hit lies on a block
+    grid plane; the entry axis is the one nearest that grid and the face
+    opposes the ray."""
+    inst, _o, d_obj, hit_obj = _hit_obj(scene, res, origin_w, dir_w)
+
+    v = hit_obj * 0.25
+    fr = (v - torch.round(v)).abs()
+    ax_y = (fr[:, 1] <= fr[:, 0]) & (fr[:, 1] <= fr[:, 2])
+    ax_z = ~ax_y & (fr[:, 2] <= fr[:, 0]) & (fr[:, 2] <= fr[:, 1])
+    ax_x = ~ax_y & ~ax_z
+    axes = torch.stack([ax_x, ax_y, ax_z], dim=-1).float()
+    n_obj = -torch.sign(d_obj) * axes
+    n_world = _inst_xform(scene.obj_to_world, inst, n_obj, False)
+    return pk.normal_to_face_id(pk.cubed_normalize(n_world))
