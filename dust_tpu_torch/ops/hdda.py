@@ -73,6 +73,7 @@ from dust_tpu_torch.ops.fp import fma as _fma
 from dust_tpu_torch.ops.fp import sqrt as _sqrt
 from dust_tpu_torch.ops.traverse import (TraceResult, clip_to_model_aabb,
                                          dir_length, xform_dir, xform_point)
+from dust_tpu_torch.utils.profiling import trace_annotation
 
 __all__ = ["HDDATables", "build_hdda_tables", "stack_tables", "hdda",
            "hdda_plain", "hdda_instance", "hdda_instance_plain",
@@ -914,19 +915,21 @@ def _instance_tables(scene, m) -> HDDATables:
 def trace_scene(scene, origin, direction, t_min, t_max,
                 mode: str = "precise") -> TraceResult:
     """Closest hit against every instance (world rays, unnormalised
-    directions, world-parameter t bounds)."""
-    n = origin.shape[0]
-    dev = origin.device
-    if _loop_route():
-        return _trace_scene_loop(scene, origin, direction,
-                                 _per_ray(t_min, n, dev),
-                                 _per_ray(t_max, n, dev), mode)
-    models, ids, aff, aabb = _scene_args(scene, origin)
-    t, inst, row, bit = hdda(
-        scene.hdda_l1, scene.hdda_l2, scene.hdda_mask, models, ids, aff, aabb,
-        origin.contiguous(), direction.contiguous(),
-        _per_ray(t_min, n, dev), _per_ray(t_max, n, dev), mode=mode)
-    return TraceResult(t=t, inst=inst, row=row, bit=bit)
+    directions, world-parameter t bounds). The pass runs in the span
+    ``dust.hdda.<mode>``."""
+    with trace_annotation(f"dust.hdda.{mode}"):
+        n = origin.shape[0]
+        dev = origin.device
+        if _loop_route():
+            return _trace_scene_loop(scene, origin, direction,
+                                     _per_ray(t_min, n, dev),
+                                     _per_ray(t_max, n, dev), mode)
+        models, ids, aff, aabb = _scene_args(scene, origin)
+        t, inst, row, bit = hdda(
+            scene.hdda_l1, scene.hdda_l2, scene.hdda_mask, models, ids, aff,
+            aabb, origin.contiguous(), direction.contiguous(),
+            _per_ray(t_min, n, dev), _per_ray(t_max, n, dev), mode=mode)
+        return TraceResult(t=t, inst=inst, row=row, bit=bit)
 
 
 def _trace_scene_loop(scene, origin, direction, t_min, t_max, mode):
@@ -960,22 +963,25 @@ def _trace_scene_loop(scene, origin, direction, t_min, t_max, mode):
 def trace_scene_ao_fg(scene, origin, direction, t_min, t_ao, t_max):
     """Fused AO + final-gather walk over every instance: precise voxel
     hits with the AO entry report below ``t_ao``, rough block hits past
-    it. Returns two TraceResults (ao, fg); ao carries only t and inst."""
-    n = origin.shape[0]
-    dev = origin.device
-    neg1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    t_min, t_ao, t_max = (_per_ray(t, n, dev) for t in (t_min, t_ao, t_max))
-    if _loop_route():
-        ao_t, ao_i, fg_t, fg_i, fg_row = _trace_scene_ao_fg_loop(
-            scene, origin, direction, t_min, t_ao, t_max)
-    else:
-        models, ids, aff, aabb = _scene_args(scene, origin)
-        ao_t, ao_i, fg_t, fg_i, fg_row = hdda(
-            scene.hdda_l1, scene.hdda_l2, scene.hdda_mask, models, ids, aff,
-            aabb, origin.contiguous(), direction.contiguous(), t_min, t_max,
-            t_ao=t_ao, mode="ao_fg")
-    return (TraceResult(t=ao_t, inst=ao_i, row=neg1, bit=neg1),
-            TraceResult(t=fg_t, inst=fg_i, row=fg_row, bit=neg1))
+    it. Returns two TraceResults (ao, fg); ao carries only t and inst.
+    The pass runs in the span ``dust.hdda.ao_fg``."""
+    with trace_annotation("dust.hdda.ao_fg"):
+        n = origin.shape[0]
+        dev = origin.device
+        neg1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        t_min, t_ao, t_max = (_per_ray(t, n, dev)
+                              for t in (t_min, t_ao, t_max))
+        if _loop_route():
+            ao_t, ao_i, fg_t, fg_i, fg_row = _trace_scene_ao_fg_loop(
+                scene, origin, direction, t_min, t_ao, t_max)
+        else:
+            models, ids, aff, aabb = _scene_args(scene, origin)
+            ao_t, ao_i, fg_t, fg_i, fg_row = hdda(
+                scene.hdda_l1, scene.hdda_l2, scene.hdda_mask, models, ids,
+                aff, aabb, origin.contiguous(), direction.contiguous(), t_min,
+                t_max, t_ao=t_ao, mode="ao_fg")
+        return (TraceResult(t=ao_t, inst=ao_i, row=neg1, bit=neg1),
+                TraceResult(t=fg_t, inst=fg_i, row=fg_row, bit=neg1))
 
 
 def _trace_scene_ao_fg_loop(scene, origin, direction, t_min, t_ao, t_max):

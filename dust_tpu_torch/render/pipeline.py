@@ -39,6 +39,12 @@ the primary hits' shading, and their emission joins the direct
 channel. The slices of the working set and the pool are chosen on
 the host from the Python ``frame_index``, so the frame branches on no
 tensor's value.
+
+Each step runs in its span (``dust.primary``, ``dust.sun``,
+``dust.gather``, ``dust.refresh``, ``dust.post``; a step the frame does
+not run opens none), inside ``dust.frame``: ranges of the running
+``torch.profiler``, free when none runs
+(:func:`~dust_tpu_torch.utils.profiling.trace_annotation`).
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from dust_tpu_torch.ops import hdda
 from dust_tpu_torch.ops import traverse
 from dust_tpu_torch.render.materials import apply_materials
 from dust_tpu_torch.utils import color as colorlib
+from dust_tpu_torch.utils.profiling import trace_annotation
 from dust_tpu_torch.vox.geometry import unpack_r10g10b10a2
 
 __all__ = ["FrameState", "make_frame_state", "render_frame",
@@ -327,6 +334,14 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
     all-reduce) and, at more than 2 instances, the sweep order (the mean
     of the rank's ray origins) can round otherwise than in the frame
     without a mesh."""
+    with trace_annotation("dust.frame"):
+        return _render_frame(scene, state, cam, sky_state, bn_cosine,
+                             bn_scalar, settings, tile, return_aux, mesh)
+
+
+def _render_frame(scene, state, cam, sky_state, bn_cosine, bn_scalar,
+                  settings, tile, return_aux, mesh):
+    """The body of :func:`render_frame`: its stages, each in its span."""
     _check_settings(settings)
     H, W = settings.height, settings.width
     n = H * W
@@ -359,363 +374,380 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
         return traverse.TraceResult(*(x[:k] for x in res))
 
     # -------------------------------------------------- 1. primary
-    dirs = to_tiles(cameralib.camera_ray_dirs(cam, W, H))[lo:hi]
-    origins = cam.position.expand(m, 3).contiguous()
-    primary = trace(origins, dirs, cam.near, cam.far, "precise")
-    g = shade.resolve_hits(scene, primary, origins, dirs)
-    g, mat_emissive = apply_materials(g, settings.instance_materials)
-    hit = g["hit"]
+    with trace_annotation("dust.primary"):
+        dirs = to_tiles(cameralib.camera_ray_dirs(cam, W, H))[lo:hi]
+        origins = cam.position.expand(m, 3).contiguous()
+        primary = trace(origins, dirs, cam.near, cam.far, "precise")
+        g = shade.resolve_hits(scene, primary, origins, dirs)
+        g, mat_emissive = apply_materials(g, settings.instance_materials)
+        hit = g["hit"]
 
-    dirs_n = dirs / pk.norm3(dirs, keepdim=True)
-    sky_out = (skylib.sky_radiance(sky_state, dirs_n)
-               + skylib.sun_radiance(sky_state, dirs_n)) / 3.14
+        dirs_n = dirs / pk.norm3(dirs, keepdim=True)
+        sky_out = (skylib.sky_radiance(sky_state, dirs_n)
+                   + skylib.sun_radiance(sky_state, dirs_n)) / 3.14
 
     # -------------------------------------------------- 2. sun NEE
-    normal = g["normal"]
-    hit_loc = fma(normal, torch.full_like(normal, 0.01), g["world_pos"])
-    sun_dir = sky_state.direction
-    strength = skylib.sun_radiance(sky_state, sun_dir[None])[0] * (
-        1.0 - torch.cos(sky_state.solar_radius))
-    direct = mat_emissive
-    if settings.contribution_direct:
-        ndl = (normal * sun_dir).sum(dim=-1)
-        facing = (ndl > 0.0) & hit
-        sthr = settings.ambient_occlusion_threshold
-        sun_rays = sun_dir.expand(m, 3)
-        s_tmax = fill(facing, 10000.0, -1.0)
-        if settings.shadow_mode == "precise":
-            occluded = trace(hit_loc, sun_rays, 0.1, s_tmax, "precise").hit
-        elif pallas and not sharded:
-            s_ao, s_fg = hdda.trace_scene_ao_fg(
-                scene, hit_loc, sun_rays, 0.1, fill(facing, sthr, -1.0),
-                s_tmax)
-            occluded = s_ao.hit | s_fg.hit
-        else:
-            occluded = (trace(hit_loc, sun_rays, 0.1,
-                              fill(facing, sthr, -1.0), "ao_threshold").hit
-                        | trace(hit_loc, sun_rays, sthr, s_tmax, "rough").hit)
-        unoccluded = facing & ~occluded
-        direct = direct + torch.where(
-            unoccluded[:, None], strength * torch.clamp(ndl, min=0.0)[:, None],
-            0.0)
-
-    if not gi:
-        # The primary+shadow frame: no AO, final-gather or surfel pass,
-        # and (below) no denoiser; the cache and pool carry unchanged.
-        hitdist = torch.where(hit, 0.0, 100000.0)
-        radiance_img = torch.where(hit[:, None], direct, sky_out)
-        surfels, new_gi, new_gi_ws = state.surfels, state.gi, state.gi_ws
-    else:
-        # ---------------------------------------------- 3. AO + final gather
-        cos_sample = to_tiles(noiselib.bn_fetch(
-            bn_cosine, layer, (7, 183), rand, H, W))[lo:hi] * 2.0 - 1.0
-        gi_dir = pk.rotate_vector_by_normal(normal, cos_sample)
-        gi_dir = torch.where(hit[:, None], gi_dir,
-                             gi_dir.new_tensor([0.0, 1.0, 0.0]))
-        thr = settings.ambient_occlusion_threshold
-        ao = trace(hit_loc, gi_dir, 0.1, fill(hit, thr, -1.0), "ao_threshold")
-        ao_hit = ao.hit
-        fg_active = hit & ~ao_hit
-        fg = trace(hit_loc, gi_dir, thr,
-                   torch.where(fg_active, cam.far, -1.0), "rough")
-        fg_hit = fg_active & fg.hit
-
-        if dense:
-            gi_reads, new_gi_ws = state.gi, state.gi_ws
-            if sharded:
-                # The rays read any row: one all-gather of the
-                # row-sharded table gives the replicated read view.
-                gi_reads = gilib.DenseGICache(table=parallel.gather_rows(
-                    mesh, state.gi.table, gilib.dense_rows(scene)))
-        else:
-            gi_reads, new_gi_ws = _working_set(scene, state, settings,
-                                               frame_index)
-        face = shade.entry_face(scene, fg, hit_loc, gi_dir)
-        _found, cached, cnt, alb_u32 = gilib.dense_get(
-            gi_reads, gilib.dense_index(scene, fg.inst, fg.row, face),
-            fg_hit)
-        albedo_lin = colorlib.srgb_eotf(unpack_r10g10b10a2(alb_u32)[:, :3])
-        indirect = colorlib.srgb_to_acescg(
-            colorlib.acescg_to_srgb(cached) * albedo_lin)
-        illum = torch.zeros((m, 3), device=dev)
-        if settings.contribution_secondary_spatial_hash:
-            illum = illum + torch.where(fg_hit[:, None], indirect, 0.0)
-        if settings.contribution_secondary_skylight:
-            illum = illum + torch.where(
-                (fg_active & ~fg.hit)[:, None],
-                skylib.sky_radiance(sky_state, gi_dir), 0.0)
-
-        surfels = state.surfels
-        if not dense:
-            # Stochastic enqueue of final-gather hit cells: pool slot =
-            # ray index % pool size, the lowest index wins.
-            p_sched = 1.0 / (cnt + 2.0)
-            noise0 = to_tiles(noiselib.bn_fetch(
-                bn_scalar, layer, (34, 21), rand, H, W))[lo:hi, 0]
-            enqueue = fg_hit & (noise0 > p_sched)
-            center_fg = shade.entry_leaf_center(scene, fg, hit_loc, gi_dir)
-            rows = torch.cat([center_fg, face.float()[:, None]], dim=-1)
-            if sharded:
-                # The pool is replicated: every rank enqueues every
-                # rank's candidates, in the global ray order.
-                both = parallel.gather_rows(mesh, torch.cat(
-                    [enqueue.float()[:, None], rows], dim=-1), n)
-                enqueue, rows = both[:, 0] > 0.0, both[:, 1:]
-            surfels = _pool_enqueue_mod(surfels, enqueue, rows)
-        if settings.debug_visualize_spatial_hash:
-            # Show the cache: the primary hit cell's cached radiance.
-            dbg = shade.leaf_attributes(scene, primary, origins, dirs,
-                                        cell_size)
-            if dense:
-                _, dbg_rad, _, _ = gilib.dense_get(
-                    gi_reads, gilib.dense_index(scene, primary.inst,
-                                                primary.row, dbg["face"]), hit)
+    with trace_annotation("dust.sun"):
+        normal = g["normal"]
+        hit_loc = fma(normal, torch.full_like(normal, 0.01), g["world_pos"])
+        sun_dir = sky_state.direction
+        strength = skylib.sun_radiance(sky_state, sun_dir[None])[0] * (
+            1.0 - torch.cos(sky_state.solar_radius))
+        direct = mat_emissive
+        if settings.contribution_direct:
+            ndl = (normal * sun_dir).sum(dim=-1)
+            facing = (ndl > 0.0) & hit
+            sthr = settings.ambient_occlusion_threshold
+            sun_rays = sun_dir.expand(m, 3)
+            s_tmax = fill(facing, 10000.0, -1.0)
+            if settings.shadow_mode == "precise":
+                occluded = trace(hit_loc, sun_rays, 0.1, s_tmax, "precise").hit
+            elif pallas and not sharded:
+                s_ao, s_fg = hdda.trace_scene_ao_fg(
+                    scene, hit_loc, sun_rays, 0.1, fill(facing, sthr, -1.0),
+                    s_tmax)
+                occluded = s_ao.hit | s_fg.hit
             else:
-                _, dbg_rad, _ = sh.hash_get(state.gi, dbg["qpos"],
-                                            dbg["face"])
-            illum = torch.where(hit[:, None], dbg_rad, illum)
+                occluded = (
+                    trace(hit_loc, sun_rays, 0.1, fill(facing, sthr, -1.0),
+                          "ao_threshold").hit
+                    | trace(hit_loc, sun_rays, sthr, s_tmax, "rough").hit)
+            unoccluded = facing & ~occluded
+            direct = direct + torch.where(
+                unoccluded[:, None],
+                strength * torch.clamp(ndl, min=0.0)[:, None], 0.0)
 
-        hitdist = torch.where(ao_hit, ao.t, 0.0)
-        hitdist = torch.where(fg_hit, fg.t, hitdist)
-        radiance_img = torch.where(hit[:, None], direct + illum, sky_out)
-        hitdist = torch.where(hit, hitdist, 100000.0)
+        if not gi:
+            # The primary+shadow frame: no AO, final-gather or surfel pass,
+            # and (below) no denoiser; the cache and pool carry unchanged.
+            hitdist = torch.where(hit, 0.0, 100000.0)
+            radiance_img = torch.where(hit[:, None], direct, sky_out)
+            surfels, new_gi, new_gi_ws = state.surfels, state.gi, state.gi_ws
+
+    if gi:
+        # ---------------------------------------------- 3. AO + final gather
+        with trace_annotation("dust.gather"):
+            cos_sample = to_tiles(noiselib.bn_fetch(
+                bn_cosine, layer, (7, 183), rand, H, W))[lo:hi] * 2.0 - 1.0
+            gi_dir = pk.rotate_vector_by_normal(normal, cos_sample)
+            gi_dir = torch.where(hit[:, None], gi_dir,
+                                 gi_dir.new_tensor([0.0, 1.0, 0.0]))
+            thr = settings.ambient_occlusion_threshold
+            ao = trace(hit_loc, gi_dir, 0.1, fill(hit, thr, -1.0),
+                       "ao_threshold")
+            ao_hit = ao.hit
+            fg_active = hit & ~ao_hit
+            fg = trace(hit_loc, gi_dir, thr,
+                       torch.where(fg_active, cam.far, -1.0), "rough")
+            fg_hit = fg_active & fg.hit
+
+            if dense:
+                gi_reads, new_gi_ws = state.gi, state.gi_ws
+                if sharded:
+                    # The rays read any row: one all-gather of the
+                    # row-sharded table gives the replicated read view.
+                    gi_reads = gilib.DenseGICache(table=parallel.gather_rows(
+                        mesh, state.gi.table, gilib.dense_rows(scene)))
+            else:
+                gi_reads, new_gi_ws = _working_set(scene, state, settings,
+                                                   frame_index)
+            face = shade.entry_face(scene, fg, hit_loc, gi_dir)
+            _found, cached, cnt, alb_u32 = gilib.dense_get(
+                gi_reads, gilib.dense_index(scene, fg.inst, fg.row, face),
+                fg_hit)
+            albedo_lin = colorlib.srgb_eotf(unpack_r10g10b10a2(alb_u32)[:, :3])
+            indirect = colorlib.srgb_to_acescg(
+                colorlib.acescg_to_srgb(cached) * albedo_lin)
+            illum = torch.zeros((m, 3), device=dev)
+            if settings.contribution_secondary_spatial_hash:
+                illum = illum + torch.where(fg_hit[:, None], indirect, 0.0)
+            if settings.contribution_secondary_skylight:
+                illum = illum + torch.where(
+                    (fg_active & ~fg.hit)[:, None],
+                    skylib.sky_radiance(sky_state, gi_dir), 0.0)
+
+            surfels = state.surfels
+            if not dense:
+                # Stochastic enqueue of final-gather hit cells: pool slot =
+                # ray index % pool size, the lowest index wins.
+                p_sched = 1.0 / (cnt + 2.0)
+                noise0 = to_tiles(noiselib.bn_fetch(
+                    bn_scalar, layer, (34, 21), rand, H, W))[lo:hi, 0]
+                enqueue = fg_hit & (noise0 > p_sched)
+                center_fg = shade.entry_leaf_center(scene, fg, hit_loc, gi_dir)
+                rows = torch.cat([center_fg, face.float()[:, None]], dim=-1)
+                if sharded:
+                    # The pool is replicated: every rank enqueues every
+                    # rank's candidates, in the global ray order.
+                    both = parallel.gather_rows(mesh, torch.cat(
+                        [enqueue.float()[:, None], rows], dim=-1), n)
+                    enqueue, rows = both[:, 0] > 0.0, both[:, 1:]
+                surfels = _pool_enqueue_mod(surfels, enqueue, rows)
+            if settings.debug_visualize_spatial_hash:
+                # Show the cache: the primary hit cell's cached radiance.
+                dbg = shade.leaf_attributes(scene, primary, origins, dirs,
+                                            cell_size)
+                if dense:
+                    _, dbg_rad, _, _ = gilib.dense_get(
+                        gi_reads, gilib.dense_index(
+                            scene, primary.inst, primary.row, dbg["face"]),
+                        hit)
+                else:
+                    _, dbg_rad, _ = sh.hash_get(state.gi, dbg["qpos"],
+                                                dbg["face"])
+                illum = torch.where(hit[:, None], dbg_rad, illum)
+
+            hitdist = torch.where(ao_hit, ao.t, 0.0)
+            hitdist = torch.where(fg_hit, fg.t, hitdist)
+            radiance_img = torch.where(hit[:, None], direct + illum, sky_out)
+            hitdist = torch.where(hit, hitdist, 100000.0)
 
         # ---------------------------------------------- 4. surfel refresh
-        slice_start = None
-        if dense:
-            # The pool is the cell list, face-major: row = face * cells +
-            # cell.
-            centers_w, vleaf = _cell_enumeration(scene)
-            C = centers_w.shape[0]
-            surfel_pos = centers_w.repeat(6, 1)
-            surfel_dir = torch.arange(6, dtype=torch.int32, device=dev)[
-                :, None].expand(6, C).reshape(-1)
-            s_valid = vleaf.repeat(6)
-            # Refresh budget: big scenes patch a rotating contiguous slice
-            # of ``budget`` rows per frame.
-            rows_total = surfel_pos.shape[0]
-            budget = settings.surfels.dense_refresh_budget
-            if budget and rows_total > budget:
-                nslices = -(-rows_total // budget)
-                slice_start = min((frame_index % nslices) * budget,
-                                  rows_total - budget)
-                window = slice(slice_start, slice_start + budget)
-                surfel_pos = surfel_pos[window]
-                surfel_dir = surfel_dir[window]
-                s_valid = s_valid[window]
-        else:
-            # The pool, or under a refresh budget its rotating slice.
-            pool_rows = surfels
-            pbudget = settings.surfels.pool_refresh_budget
-            if pbudget and surfels.shape[0] > pbudget:
-                nslices = -(-surfels.shape[0] // pbudget)
-                slice_start = min((frame_index % nslices) * pbudget,
-                                  surfels.shape[0] - pbudget)
-                pool_rows = surfels[slice_start:slice_start + pbudget]
-            surfel_pos = pool_rows[:, :3]
-            surfel_dir = pool_rows[:, 3].int()
-            s_valid = surfel_dir < 6
-            surfel_dir = torch.clamp(surfel_dir, max=5)
-        p = surfel_pos.shape[0]
-        s_normal = pk.face_id_to_normal(surfel_dir)
-        s_origin = fma(torch.full_like(s_normal, 2.01), s_normal, surfel_pos)
-        s_cos = noiselib.bn_fetch_pool(bn_cosine, layer, (16, 47), rand,
-                                       p) * 2.0 - 1.0
-        s_dir = pk.rotate_vector_by_normal(s_normal, s_cos)
-        # Sharded: the rank traces its chunk of the p surfel rays. Dense
-        # goes on with that chunk (without a budget, its rows are the
-        # rank's rows of the table); the hash pool is replicated, so
-        # every rank gathers every rank's trace results.
-        s_lo, s_hi = parallel.ray_sharding(mesh, p) if sharded else (0, p)
-        if sharded and dense:
-            surfel_pos, surfel_dir, s_valid, s_normal, s_origin, s_dir = (
-                x[s_lo:s_hi] for x in (surfel_pos, surfel_dir, s_valid,
-                                       s_normal, s_origin, s_dir))
-
-        def trace_surfels(o, d, t_max):
-            if not sharded or dense:
-                return trace(o, d, 0.1, t_max, "rough", length=p)
-            res = trace(o[s_lo:s_hi], d[s_lo:s_hi], 0.1, t_max[s_lo:s_hi],
-                        "rough", length=p)
-            return _gather_trace(mesh, res, p)
-
-        k = s_origin.shape[0]
-        s_payload = torch.zeros((k, 3), device=dev)
-        if settings.contribution_secondary_sunlight:
-            s_ndl = (s_normal * sun_dir).sum(dim=-1)
-            s_facing = (s_ndl > 0.0) & s_valid
-            s_shadow = trace_surfels(s_origin, sun_dir.expand(k, 3),
-                                     fill(s_facing, 10000.0, -1.0))
-            s_unocc = s_facing & ~s_shadow.hit
-            s_payload = s_payload + torch.where(
-                s_unocc[:, None],
-                strength * torch.clamp(s_ndl, min=0.0)[:, None], 0.0)
-
-        s_res = trace_surfels(s_origin, s_dir, fill(s_valid, 10000.0, -1.0))
-        s_hit = s_valid & s_res.hit
-        s_face = shade.entry_face(scene, s_res, s_origin, s_dir)
-        s_found, s_cached, s_cnt, s_alb_u32 = gilib.dense_get(
-            gi_reads, gilib.dense_index(scene, s_res.inst, s_res.row,
-                                        s_face), s_hit)
-        s_albedo_lin = colorlib.srgb_eotf(
-            unpack_r10g10b10a2(s_alb_u32)[:, :3])
-        s_bounce = colorlib.srgb_to_acescg(
-            colorlib.acescg_to_srgb(s_cached) * s_albedo_lin)
-        s_sky = skylib.sky_radiance(sky_state, s_dir / torch.clamp(
-            pk.norm3(s_dir, keepdim=True), min=1e-8))
-        # Insert at the surfel's own cell: the bounce on a cached hit, the
-        # sky on a miss.
-        insert_val = torch.where(s_hit[:, None], s_bounce + s_payload,
-                                 s_sky + s_payload)
-        insert_ok = s_valid & (~s_hit | s_found)
-        if dense and slice_start is None:
-            new_gi = gilib.dense_update(state.gi, insert_val, insert_ok)
-        elif dense and sharded:
-            # The budget's window is not aligned with the table's shards:
-            # gather its results, then each rank updates the rows it owns.
-            both = parallel.gather_rows(mesh, torch.cat(
-                [insert_val, insert_ok.float()[:, None]], dim=-1), p)
-            r0, _ = parallel.ray_sharding(mesh, gilib.dense_rows(scene))
-            new_gi = gilib.dense_update_rows(state.gi, r0, slice_start,
-                                             both[:, :3], both[:, 3] > 0.0)
-        elif dense:
-            new_gi = gilib.dense_update_slice(state.gi, slice_start,
-                                              insert_val, insert_ok)
-        else:
-            new_gi = sh.hash_insert(
-                state.gi,
-                *sh.spatial_hash_key(surfel_pos, surfel_dir, cell_size),
-                insert_val, frame_index, valid=insert_ok,
-                max_updates=settings.spatial_hash.insert_cap or None)
-            # A hit cell not in the cache requeues into the surfel's own
-            # slot.
-            s_noise = noiselib.bn_fetch_pool(bn_scalar, layer, (114, 40),
-                                             rand, p)[:, 0]
-            s_requeue = s_hit & ~s_found & (s_noise > 1.0 / (s_cnt + 2.0))
-            s_center = shade.entry_leaf_center(scene, s_res, s_origin, s_dir)
-            requeued = torch.where(
-                s_requeue[:, None],
-                torch.cat([s_center, s_face.float()[:, None]], dim=-1),
-                pool_rows)
-            if slice_start is None:
-                surfels = requeued
+        with trace_annotation("dust.refresh"):
+            slice_start = None
+            if dense:
+                # The pool is the cell list, face-major: row = face * cells +
+                # cell.
+                centers_w, vleaf = _cell_enumeration(scene)
+                C = centers_w.shape[0]
+                surfel_pos = centers_w.repeat(6, 1)
+                surfel_dir = torch.arange(6, dtype=torch.int32, device=dev)[
+                    :, None].expand(6, C).reshape(-1)
+                s_valid = vleaf.repeat(6)
+                # Refresh budget: big scenes patch a rotating contiguous slice
+                # of ``budget`` rows per frame.
+                rows_total = surfel_pos.shape[0]
+                budget = settings.surfels.dense_refresh_budget
+                if budget and rows_total > budget:
+                    nslices = -(-rows_total // budget)
+                    slice_start = min((frame_index % nslices) * budget,
+                                      rows_total - budget)
+                    window = slice(slice_start, slice_start + budget)
+                    surfel_pos = surfel_pos[window]
+                    surfel_dir = surfel_dir[window]
+                    s_valid = s_valid[window]
             else:
-                surfels = surfels.clone()
-                surfels[slice_start:slice_start + p] = requeued
+                # The pool, or under a refresh budget its rotating slice.
+                pool_rows = surfels
+                pbudget = settings.surfels.pool_refresh_budget
+                if pbudget and surfels.shape[0] > pbudget:
+                    nslices = -(-surfels.shape[0] // pbudget)
+                    slice_start = min((frame_index % nslices) * pbudget,
+                                      surfels.shape[0] - pbudget)
+                    pool_rows = surfels[slice_start:slice_start + pbudget]
+                surfel_pos = pool_rows[:, :3]
+                surfel_dir = pool_rows[:, 3].int()
+                s_valid = surfel_dir < 6
+                surfel_dir = torch.clamp(surfel_dir, max=5)
+            p = surfel_pos.shape[0]
+            s_normal = pk.face_id_to_normal(surfel_dir)
+            s_origin = fma(torch.full_like(s_normal, 2.01), s_normal,
+                           surfel_pos)
+            s_cos = noiselib.bn_fetch_pool(bn_cosine, layer, (16, 47), rand,
+                                           p) * 2.0 - 1.0
+            s_dir = pk.rotate_vector_by_normal(s_normal, s_cos)
+            # Sharded: the rank traces its chunk of the p surfel rays. Dense
+            # goes on with that chunk (without a budget, its rows are the
+            # rank's rows of the table); the hash pool is replicated, so
+            # every rank gathers every rank's trace results.
+            s_lo, s_hi = parallel.ray_sharding(mesh, p) if sharded else (0, p)
+            if sharded and dense:
+                surfel_pos, surfel_dir, s_valid, s_normal, s_origin, s_dir = (
+                    x[s_lo:s_hi] for x in (surfel_pos, surfel_dir, s_valid,
+                                           s_normal, s_origin, s_dir))
+
+            def trace_surfels(o, d, t_max):
+                if not sharded or dense:
+                    return trace(o, d, 0.1, t_max, "rough", length=p)
+                res = trace(o[s_lo:s_hi], d[s_lo:s_hi], 0.1, t_max[s_lo:s_hi],
+                            "rough", length=p)
+                return _gather_trace(mesh, res, p)
+
+            k = s_origin.shape[0]
+            s_payload = torch.zeros((k, 3), device=dev)
+            if settings.contribution_secondary_sunlight:
+                s_ndl = (s_normal * sun_dir).sum(dim=-1)
+                s_facing = (s_ndl > 0.0) & s_valid
+                s_shadow = trace_surfels(s_origin, sun_dir.expand(k, 3),
+                                         fill(s_facing, 10000.0, -1.0))
+                s_unocc = s_facing & ~s_shadow.hit
+                s_payload = s_payload + torch.where(
+                    s_unocc[:, None],
+                    strength * torch.clamp(s_ndl, min=0.0)[:, None], 0.0)
+
+            s_res = trace_surfels(s_origin, s_dir,
+                                  fill(s_valid, 10000.0, -1.0))
+            s_hit = s_valid & s_res.hit
+            s_face = shade.entry_face(scene, s_res, s_origin, s_dir)
+            s_found, s_cached, s_cnt, s_alb_u32 = gilib.dense_get(
+                gi_reads, gilib.dense_index(scene, s_res.inst, s_res.row,
+                                            s_face), s_hit)
+            s_albedo_lin = colorlib.srgb_eotf(
+                unpack_r10g10b10a2(s_alb_u32)[:, :3])
+            s_bounce = colorlib.srgb_to_acescg(
+                colorlib.acescg_to_srgb(s_cached) * s_albedo_lin)
+            s_sky = skylib.sky_radiance(sky_state, s_dir / torch.clamp(
+                pk.norm3(s_dir, keepdim=True), min=1e-8))
+            # Insert at the surfel's own cell: the bounce on a cached hit, the
+            # sky on a miss.
+            insert_val = torch.where(s_hit[:, None], s_bounce + s_payload,
+                                     s_sky + s_payload)
+            insert_ok = s_valid & (~s_hit | s_found)
+            if dense and slice_start is None:
+                new_gi = gilib.dense_update(state.gi, insert_val, insert_ok)
+            elif dense and sharded:
+                # The budget's window is not aligned with the table's shards:
+                # gather its results, then each rank updates the rows it owns.
+                both = parallel.gather_rows(mesh, torch.cat(
+                    [insert_val, insert_ok.float()[:, None]], dim=-1), p)
+                r0, _ = parallel.ray_sharding(mesh, gilib.dense_rows(scene))
+                new_gi = gilib.dense_update_rows(state.gi, r0, slice_start,
+                                                 both[:, :3], both[:, 3] > 0.0)
+            elif dense:
+                new_gi = gilib.dense_update_slice(state.gi, slice_start,
+                                                  insert_val, insert_ok)
+            else:
+                new_gi = sh.hash_insert(
+                    state.gi,
+                    *sh.spatial_hash_key(surfel_pos, surfel_dir, cell_size),
+                    insert_val, frame_index, valid=insert_ok,
+                    max_updates=settings.spatial_hash.insert_cap or None)
+                # A hit cell not in the cache requeues into the surfel's own
+                # slot.
+                s_noise = noiselib.bn_fetch_pool(bn_scalar, layer, (114, 40),
+                                                 rand, p)[:, 0]
+                s_requeue = s_hit & ~s_found & (s_noise > 1.0 / (s_cnt + 2.0))
+                s_center = shade.entry_leaf_center(scene, s_res, s_origin,
+                                                   s_dir)
+                requeued = torch.where(
+                    s_requeue[:, None],
+                    torch.cat([s_center, s_face.float()[:, None]], dim=-1),
+                    pool_rows)
+                if slice_start is None:
+                    surfels = requeued
+                else:
+                    surfels = surfels.clone()
+                    surfels[slice_start:slice_start + p] = requeued
 
     # -------------------------------------------------- 5. post
-    # The per-ray channels the post reads, as images. Sharded: one
-    # all-gather assembles every rank's rays on every rank; each pass
-    # then computes the rank's rows.
-    half = _half_res(settings)
-    split = half or settings.denoiser.split_direct
-    chans = dict(depth=g["depth"], albedo=g["albedo"][:, :3])
-    if gi:
-        chans.update(hitdist=hitdist, normal=normal, world_pos=g["world_pos"],
-                     motion=g["motion"])
-    if gi and split:
-        chans.update(ind=torch.where(hit[:, None], illum, 0.0),
-                     comp=torch.where(hit[:, None], direct, sky_out))
-    if not (gi and split) or return_aux:
-        chans["radiance"] = radiance_img
-    if return_aux:
-        chans.update(hitdist=hitdist, normal=normal, motion=g["motion"],
-                     voxel_id=g["voxel_id"])
-    if sharded:
-        chans = _gather_columns(mesh, chans, n)
-    img = {name: from_tiles(v) for name, v in chans.items()}
-
-    row_lo, row_hi = parallel.ray_sharding(mesh, H) if sharded else (0, H)
-    own = slice(row_lo, row_hi)
-
-    def around(lo_, hi_, length):
-        """Rows [lo_, hi_) and one more on each side, in the image."""
-        return slice(max(lo_ - 1, 0), min(hi_ + 1, length))
-
-    def den_rows(lo_, hi_, length):
-        """The denoiser's keyword ``rows`` for image rows [lo_, hi_) of
-        ``length``; none (the whole image) without a mesh."""
-        if not sharded:
-            return {}
-        return dict(rows=(lo_, hi_, lambda x: parallel.gather_rows(
-            mesh, x, length)))
-
-    dep2 = img["depth"]
-    valid2 = torch.isfinite(dep2[own])
-    if not gi:
-        # Direct light alone is deterministic: nothing to denoise.
-        denoised = img["radiance"][own]
-        new_den = state.denoiser
-    elif not half:
-        # Full resolution: the indirect alone rides the temporal chain and
-        # direct composes after (split_direct: the half-res estimator at
-        # full resolution), or both through the denoiser together, as the
-        # reference's REBLUR input.
-        rad2 = img["ind"] if split else img["radiance"]
-        den, _hd, new_den = denoiselib.denoise(
-            state.denoiser, rad2[around(row_lo, row_hi, H)],
-            img["hitdist"][own], dep2[own], img["normal"][own],
-            img["world_pos"][own], img["motion"][own], state.prev_view_proj,
-            settings.denoiser, **den_rows(row_lo, row_hi, H))
-        denoised = (torch.where(valid2[..., None], den, 0.0)
-                    + img["comp"][own]) if split else den
-    else:
-        # Half resolution: the rank's half-res rows [lo_h, hi_h); its
-        # full-res rows read the half-res rows [up_lo, up_hi) in the
-        # upsample; the downsample covers both with the denoiser's
-        # one-row margin.
-        Hh = H // 2
-        lo_h, hi_h = parallel.ray_sharding(mesh, Hh) if sharded else (0, Hh)
-        up_lo, up_hi = max(0, row_lo // 2 - 1), min(Hh, (row_hi - 1) // 2 + 2)
-        a = min(max(lo_h - 1, 0), up_lo)
-        b = max(min(hi_h + 1, Hh), up_hi)
-        full = slice(2 * a, 2 * b)
-        rh, hh, dh, nh, wh, mh = denoiselib.downsample_inputs(
-            img["ind"][full], img["hitdist"][full], dep2[full],
-            img["normal"][full], img["world_pos"][full], img["motion"][full])
-        mine = slice(lo_h - a, hi_h - a)
-        win = around(lo_h, hi_h, Hh)
-        # One fewer à-trous iteration at half res (same world-space
-        # footprint).
-        den_settings = dataclasses.replace(
-            settings.denoiser,
-            atrous_iterations=max(settings.denoiser.atrous_iterations - 1, 1))
-        den_h, hd_h, new_den = denoiselib.denoise(
-            state.denoiser, rh[win.start - a:win.stop - a], hh[mine],
-            dh[mine], nh[mine], wh[mine], mh[mine], state.prev_view_proj,
-            den_settings, **den_rows(lo_h, hi_h, Hh))
+    with trace_annotation("dust.post"):
+        # The per-ray channels the post reads, as images. Sharded: one
+        # all-gather assembles every rank's rays on every rank; each pass
+        # then computes the rank's rows.
+        half = _half_res(settings)
+        split = half or settings.denoiser.split_direct
+        chans = dict(depth=g["depth"], albedo=g["albedo"][:, :3])
+        if gi:
+            chans.update(hitdist=hitdist, normal=normal,
+                         world_pos=g["world_pos"], motion=g["motion"])
+        if gi and split:
+            chans.update(ind=torch.where(hit[:, None], illum, 0.0),
+                         comp=torch.where(hit[:, None], direct, sky_out))
+        if not (gi and split) or return_aux:
+            chans["radiance"] = radiance_img
+        if return_aux:
+            chans.update(hitdist=hitdist, normal=normal, motion=g["motion"],
+                         voxel_id=g["voxel_id"])
         if sharded:
-            both = parallel.gather_rows(
-                mesh, torch.cat([den_h, hd_h[..., None]], dim=-1), Hh)
-            den_h, hd_h = both[..., :3], both[..., 3]
-        up = slice(up_lo - a, up_hi - a)
-        ind_full, _hd = denoiselib.upsample_bilateral(
-            den_h[up_lo:up_hi], hd_h[up_lo:up_hi], dh[up], nh[up],
-            dep2[2 * up_lo:2 * up_hi], img["normal"][2 * up_lo:2 * up_hi])
-        ind_full = ind_full[row_lo - 2 * up_lo:row_hi - 2 * up_lo]
-        denoised = torch.where(valid2[..., None], ind_full, 0.0) + \
-            img["comp"][own]
+            chans = _gather_columns(mesh, chans, n)
+        img = {name: from_tiles(v) for name, v in chans.items()}
 
-    weighted = exposurelib.mean_bin(denoised, settings.exposure)
-    if sharded:
-        weighted = parallel.all_reduce_sum(mesh, weighted)
-    new_avg = exposurelib.adapt_average_luminance(
-        None, state.exposure_avg, n, settings.exposure, weighted=weighted)
-    exposure = exposurelib.exposure_value(new_avg)
-    albedo_img = img["albedo"][own]
-    output = tonemaplib.tonemap(denoised, albedo_img, exposure, "srgb")
+        row_lo, row_hi = parallel.ray_sharding(mesh, H) if sharded else (0, H)
+        own = slice(row_lo, row_hi)
 
-    aux = dict(
-        depth=dep2[own], albedo=albedo_img, normal=img["normal"][own],
-        motion=img["motion"][own], voxel_id=img["voxel_id"][own],
-        radiance=img["radiance"][own], hitdist=img["hitdist"][own],
-        denoised=denoised, exposure=exposure,
-    ) if return_aux else {}
-    new_state = FrameState(
-        gi=new_gi, surfels=surfels, denoiser=new_den,
-        exposure_avg=new_avg, frame_index=frame_index + 1,
-        prev_view_proj=cam.view_proj, gi_ws=new_gi_ws)
-    return output, aux, new_state
+        def around(lo_, hi_, length):
+            """Rows [lo_, hi_) and one more on each side, in the image."""
+            return slice(max(lo_ - 1, 0), min(hi_ + 1, length))
+
+        def den_rows(lo_, hi_, length):
+            """The denoiser's keyword ``rows`` for image rows [lo_, hi_) of
+            ``length``; none (the whole image) without a mesh."""
+            if not sharded:
+                return {}
+            return dict(rows=(lo_, hi_, lambda x: parallel.gather_rows(
+                mesh, x, length)))
+
+        dep2 = img["depth"]
+        valid2 = torch.isfinite(dep2[own])
+        if not gi:
+            # Direct light alone is deterministic: nothing to denoise.
+            denoised = img["radiance"][own]
+            new_den = state.denoiser
+        elif not half:
+            # Full resolution: the indirect alone rides the temporal chain and
+            # direct composes after (split_direct: the half-res estimator at
+            # full resolution), or both through the denoiser together, as the
+            # reference's REBLUR input.
+            rad2 = img["ind"] if split else img["radiance"]
+            den, _hd, new_den = denoiselib.denoise(
+                state.denoiser, rad2[around(row_lo, row_hi, H)],
+                img["hitdist"][own], dep2[own], img["normal"][own],
+                img["world_pos"][own], img["motion"][own],
+                state.prev_view_proj, settings.denoiser,
+                **den_rows(row_lo, row_hi, H))
+            denoised = (torch.where(valid2[..., None], den, 0.0)
+                        + img["comp"][own]) if split else den
+        else:
+            # Half resolution: the rank's half-res rows [lo_h, hi_h); its
+            # full-res rows read the half-res rows [up_lo, up_hi) in the
+            # upsample; the downsample covers both with the denoiser's
+            # one-row margin.
+            Hh = H // 2
+            lo_h, hi_h = (parallel.ray_sharding(mesh, Hh) if sharded
+                          else (0, Hh))
+            up_lo = max(0, row_lo // 2 - 1)
+            up_hi = min(Hh, (row_hi - 1) // 2 + 2)
+            a = min(max(lo_h - 1, 0), up_lo)
+            b = max(min(hi_h + 1, Hh), up_hi)
+            full = slice(2 * a, 2 * b)
+            rh, hh, dh, nh, wh, mh = denoiselib.downsample_inputs(
+                img["ind"][full], img["hitdist"][full], dep2[full],
+                img["normal"][full], img["world_pos"][full],
+                img["motion"][full])
+            mine = slice(lo_h - a, hi_h - a)
+            win = around(lo_h, hi_h, Hh)
+            # One fewer à-trous iteration at half res (same world-space
+            # footprint).
+            den_settings = dataclasses.replace(
+                settings.denoiser,
+                atrous_iterations=max(
+                    settings.denoiser.atrous_iterations - 1, 1))
+            den_h, hd_h, new_den = denoiselib.denoise(
+                state.denoiser, rh[win.start - a:win.stop - a], hh[mine],
+                dh[mine], nh[mine], wh[mine], mh[mine], state.prev_view_proj,
+                den_settings, **den_rows(lo_h, hi_h, Hh))
+            if sharded:
+                both = parallel.gather_rows(
+                    mesh, torch.cat([den_h, hd_h[..., None]], dim=-1), Hh)
+                den_h, hd_h = both[..., :3], both[..., 3]
+            up = slice(up_lo - a, up_hi - a)
+            ind_full, _hd = denoiselib.upsample_bilateral(
+                den_h[up_lo:up_hi], hd_h[up_lo:up_hi], dh[up], nh[up],
+                dep2[2 * up_lo:2 * up_hi], img["normal"][2 * up_lo:2 * up_hi])
+            ind_full = ind_full[row_lo - 2 * up_lo:row_hi - 2 * up_lo]
+            denoised = torch.where(valid2[..., None], ind_full, 0.0) + \
+                img["comp"][own]
+
+        weighted = exposurelib.mean_bin(denoised, settings.exposure)
+        if sharded:
+            weighted = parallel.all_reduce_sum(mesh, weighted)
+        new_avg = exposurelib.adapt_average_luminance(
+            None, state.exposure_avg, n, settings.exposure, weighted=weighted)
+        exposure = exposurelib.exposure_value(new_avg)
+        albedo_img = img["albedo"][own]
+        output = tonemaplib.tonemap(denoised, albedo_img, exposure, "srgb")
+
+        aux = dict(
+            depth=dep2[own], albedo=albedo_img, normal=img["normal"][own],
+            motion=img["motion"][own], voxel_id=img["voxel_id"][own],
+            radiance=img["radiance"][own], hitdist=img["hitdist"][own],
+            denoised=denoised, exposure=exposure,
+        ) if return_aux else {}
+        new_state = FrameState(
+            gi=new_gi, surfels=surfels, denoiser=new_den,
+            exposure_avg=new_avg, frame_index=frame_index + 1,
+            prev_view_proj=cam.view_proj, gi_ws=new_gi_ws)
+        return output, aux, new_state
 
 
 def frame_ray_count(scene, settings: RenderSettings) -> int:

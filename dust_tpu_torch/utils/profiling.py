@@ -13,6 +13,7 @@ import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["device_sync", "best_of", "FrameDiagnostics", "trace_annotation",
            "start_trace", "stop_trace"]
@@ -86,12 +87,18 @@ class FrameDiagnostics:
         self._last = now
 
 
-@contextlib.contextmanager
+_NO_SPAN = contextlib.nullcontext()
+
+
 def trace_annotation(name: str):
-    """A named range in the trace that :func:`start_trace` writes (the
-    analog of vkCmdBeginDebugUtilsLabelEXT, rhyolite/src/debug.rs:226-301)."""
-    with torch.profiler.record_function(name):
-        yield
+    """A named range in the trace of the running ``torch.profiler`` (the
+    analog of vkCmdBeginDebugUtilsLabelEXT, rhyolite/src/debug.rs:226-301):
+    ``torch.profiler.record_function(name)``. With no profiler running it
+    returns one shared no-op context manager, so a span costs one flag
+    read and records nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 _PROFILER = None
