@@ -139,7 +139,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    rebuild of the castle after one voxel edit, the castle's skip field,
    and the isolated splice tier on the card with the share of it that the
    rebuild takes. Phase 17's edit tiers, which now run native, are
-   printed beside them.
+   printed beside them;
+25. the primary stage's G-buffer kernels (dust_tpu_torch/csrc/gbuffer.cu:
+   primary_rays_kernel, gbuffer_resolve_kernel) held against their plain
+   versions on the card, field by field (torch.equal and every float's
+   bits): the camera rays, then the G-buffer and sky_out of the precise
+   trace of those rays, on an orbit frame of the castle + animated teapot
+   at 1920x1080 and 3840x2160 (hits on both instances, misses), a
+   1000x600 raster-order frame, the second quarter [lo, hi) of the 1080p
+   rays (a rank's chunk of the sharded frame) and the stress frame (11
+   instances); at both castle sizes each kernel's time (CUDA-graph
+   replay) beside its bound (its bytes at the memory rate) and the plain
+   version's host-issued time; and at both sizes one
+   frame through the kernels and through the plain versions from one
+   state: output, aux and new state equal.
 
 Every config is built and rendered through the bench module
 (dust_tpu_torch/bench.py). Before the result it prints each scene-kernel
@@ -180,6 +193,8 @@ SCENE_LAUNCHES = {"precise": 1, "ao_fg": 1, "ao_threshold": 1, "rough": 3}
 NO_GI_LAUNCHES = {"precise": 1, "ao_fg": 1, "ao_threshold": 0, "rough": 0}
 PRECISE_LAUNCHES = {"precise": 2, "ao_fg": 0, "ao_threshold": 1, "rough": 3}
 NO_LAUNCHES = {"precise": 0, "ao_fg": 0, "ao_threshold": 0, "rough": 0}
+# The G-buffer kernels' launches per frame (csrc/gbuffer.cu).
+GBUFFER_LAUNCHES = {"primary_rays": 1, "gbuffer_resolve": 1}
 # The ray-sharded GI frame: reference-mode sun shadows take two launches
 # (ao_threshold, rough) in place of the fused ao_fg.
 SHARDED_LAUNCHES = {"precise": 1, "ao_fg": 0, "ao_threshold": 2, "rough": 4}
@@ -221,6 +236,10 @@ GT_SLOW_S = 60.0
 RESERVOIRS = 1 << 20
 # The native scene build: timings in turns, best of this many each.
 NATIVE_REPS = 5
+# The G-buffer resolve's reads a ray: the trace result (t, inst, row,
+# bit), the ray (origin, direction) and the 32-byte sector of its voxel
+# word; its writes are the G-buffer's own bytes.
+GBUFFER_READ_BYTES = 16 + 24 + 32
 
 
 def _setup(device, width, height, config="gi", capacity=None, pool=None,
@@ -1711,6 +1730,198 @@ def _native_phase(dev, card, edit_times):
     return out
 
 
+def _held_equal(label, kernel, plain):
+    """Kernel outputs against plain outputs, field by field: dtype, shape,
+    torch.equal, and every bit of a float32 field (so -0.0 and 0.0
+    differ)."""
+    import torch
+
+    for name, b in plain.items():
+        a = kernel[name]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise SystemExit(f"{label} {name}: kernel {a.dtype} "
+                             f"{tuple(a.shape)}, plain {b.dtype} "
+                             f"{tuple(b.shape)}")
+        same = (a.view(torch.int32) == b.view(torch.int32)
+                if a.dtype == torch.float32 else a == b)
+        if not (torch.equal(a, b) and bool(same.all())):
+            rays = int((~same).reshape(a.shape[0], -1).any(dim=1).sum())
+            raise SystemExit(f"{label} {name}: kernel and plain differ on "
+                             f"{rays} of {a.shape[0]} rays")
+
+
+def _gbuffer_case(label, scene, cam, sky, width, height, tiled, lo=0,
+                  hi=None, instances=2, card="", timed=False):
+    """Phase 25 on one frame's rays ``[lo, hi)``: both G-buffer kernels
+    held against their plain versions (:func:`_held_equal`), the frame's
+    rays traced precise in between; at least ``instances`` instances hit
+    and some rays miss. With ``timed``, each kernel's device time beside
+    its bound and its plain version's time. Returns a dict of numbers."""
+    import torch
+    from dust_tpu_torch.ops import camera as cameralib
+    from dust_tpu_torch.ops import gbuffer, hdda, shade
+
+    n = width * height
+    hi = n if hi is None else hi
+    before = dict(gbuffer.LAUNCHES)
+
+    def rays():
+        return cameralib.primary_rays(cam, width, height, tiled, lo, hi)
+
+    def rays_plain():
+        return cameralib.primary_rays_plain(cam, width, height, tiled, lo,
+                                            hi)
+
+    o, d = rays()
+    o_p, d_p = rays_plain()
+    _held_equal(f"{label} primary_rays", dict(origins=o, directions=d),
+                dict(origins=o_p, directions=d_p))
+    res = hdda.trace_scene(scene, o, d, cam.near, cam.far, "precise")
+
+    def resolve():
+        return shade.resolve_primary(scene, res, o, d, sky)
+
+    def resolve_plain():
+        return shade.resolve_hits_plain(scene, res, o, d, sky)
+
+    g = resolve()
+    g_p = resolve_plain()
+    _held_equal(f"{label} gbuffer_resolve", g, g_p)
+    expect = {k: v + 1 for k, v in before.items()}
+    if gbuffer.LAUNCHES != expect:
+        raise SystemExit(f"{label}: G-buffer launches {gbuffer.LAUNCHES}, "
+                         f"expected {expect}")
+    hits = torch.bincount(g_p["inst"][g_p["hit"]],
+                          minlength=scene.num_instances).tolist()
+    misses = int((~g_p["hit"]).sum())
+    print(f"{label}: rays [{lo}, {hi}) of {width}x{height} "
+          f"({'tiled' if tiled else 'raster'}), both kernels equal to "
+          f"their plain versions in every field; hits by instance {hits}, "
+          f"misses {misses}")
+    if misses == 0 or sum(h > 0 for h in hits) < instances:
+        raise SystemExit(f"{label}: want misses and hits on {instances} "
+                         "instances")
+    out = dict(rays=hi - lo, hits=hits, misses=misses)
+    if not timed:
+        return out
+    m = hi - lo
+    out_bytes = sum(t.numel() * t.element_size() for t in g.values())
+    # The resolve's launch alone (its wrapper uploads inst_leaf_base, a
+    # blocking copy no CUDA graph can hold); args and the outputs it
+    # points at stay alive while the graph replays.
+    args, outs = gbuffer._resolve_args(scene, res, o, d, sky)
+    for name, fn, plain, nbytes in (
+            ("primary_rays", rays, rays_plain, 24 * m),
+            ("gbuffer_resolve",
+             lambda: gbuffer._launch("gbuffer_resolve", args, o.device),
+             resolve_plain, GBUFFER_READ_BYTES * m + out_bytes)):
+        ms = _kernel_ms(fn)
+        plain_ms = _ms(plain, 3)
+        bound = 1e3 * nbytes / MEM_BYTES_PER_S
+        print(f"{label} {name}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({nbytes / m:.1f} B a ray at 3.35 TB/s, "
+              f"{100.0 * bound / ms:.1f}% of it); plain {plain_ms:.3f} ms "
+              f"host-issued [{card}]")
+        out[name] = dict(ms=ms, bound_ms=bound, bytes_per_ray=nbytes / m,
+                         plain_ms=plain_ms)
+    del args, outs
+    return out
+
+
+def _gbuffer_frame_equal(label, ctx, frame=3):
+    """Frame ``frame`` of ctx from its state through the G-buffer kernels
+    and through their plain versions (the entry points swapped for them):
+    output, aux and new state equal (torch.equal)."""
+    import dataclasses
+
+    import torch
+    from dust_tpu_torch.ops import camera as cameralib
+    from dust_tpu_torch.ops import shade
+
+    entry = (cameralib.primary_rays, shade.resolve_primary)
+    try:
+        out_k, aux_k, st_k = _render(ctx, frame, ctx["state"], True)
+        cameralib.primary_rays = cameralib.primary_rays_plain
+        shade.resolve_primary = shade.resolve_hits_plain
+        out_p, aux_p, st_p = _render(ctx, frame, ctx["state"], True)
+    finally:
+        cameralib.primary_rays, shade.resolve_primary = entry
+
+    def leaves(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if dataclasses.is_dataclass(x):
+            x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+        elif isinstance(x, dict):
+            x = list(x.values())
+        elif not isinstance(x, (list, tuple)):
+            return [x]
+        return [leaf for v in x for leaf in leaves(v)]
+
+    a, b = leaves((out_k, aux_k, st_k)), leaves((out_p, aux_p, st_p))
+    same = len(a) == len(b) and all(
+        torch.equal(u, v) if isinstance(u, torch.Tensor) else u == v
+        for u, v in zip(a, b))
+    print(f"{label}: frame {frame} through the G-buffer kernels and through "
+          f"their plain versions: output, aux and state equal {same} "
+          f"({len(a)} fields)")
+    if not same:
+        raise SystemExit(f"{label}: the frame differs from the plain path's")
+
+
+def _gbuffer_phase(dev, card):
+    """25. The G-buffer kernels held and timed (module docstring); a dict
+    of the phase's numbers."""
+    import math
+
+    from dust_tpu_torch import bench
+    from dust_tpu_torch.ops import camera as cameralib
+    from dust_tpu_torch.vox import procgen
+
+    def orbit_frame(ctx, width, height, angle, frame):
+        """The castle at ``frame`` of the teapot's motion (the frame
+        before it as the previous transforms) seen from the bench's orbit
+        at ``angle``."""
+        s = ctx["settings"]
+        scene = ctx["scene"]
+        for f in (frame - 1, frame):
+            scene = scene.with_transforms(
+                procgen.teapot_motion(ctx["base_o2w"], ctx["anim"], f))
+        r = math.dist((bench.EYE[0], bench.EYE[2]),
+                      (bench.TARGET[0], bench.TARGET[2]))
+        eye = (r * math.sin(angle), bench.EYE[1], r * math.cos(angle))
+        cam = cameralib.camera_settings(
+            cameralib.look_at(eye, bench.TARGET), s.camera.fov,
+            s.camera.near, s.camera.far, width, height, dev)
+        return scene, cam
+
+    out = {}
+    for config, width, height in (("gi", WIDTH, HEIGHT),
+                                  ("gi-4k", WIDTH_4K, HEIGHT_4K)):
+        ctx = _setup(dev, width, height, config)
+        _gbuffer_frame_equal(f"gbuffer {width}x{height}", ctx)
+        scene, cam = orbit_frame(ctx, width, height, 2.0, 17)
+        label = f"gbuffer {width}x{height}"
+        out[label] = _gbuffer_case(label, scene, cam, ctx["sky"], width,
+                                   height, True, card=card, timed=True)
+        if config == "gi":
+            n = width * height
+            c = -(-n // 4)
+            out["gbuffer chunk"] = _gbuffer_case(
+                "gbuffer 1080p rank 1 of 4", scene, cam, ctx["sky"], width,
+                height, True, lo=c, hi=2 * c, instances=1)
+            _s, raster_cam = orbit_frame(ctx, 1000, 600, 4.0, 18)
+            out["gbuffer raster"] = _gbuffer_case(
+                "gbuffer 1000x600 raster", _s, raster_cam, ctx["sky"], 1000,
+                600, False, instances=1)
+        del ctx, scene
+    stress = _setup(dev, WIDTH, HEIGHT, "stress")
+    out["gbuffer stress"] = _gbuffer_case(
+        "gbuffer stress", stress["scene"], stress["cam"], stress["sky"],
+        WIDTH, HEIGHT, True, instances=3)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1726,7 +1937,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, here)
     from dust_tpu_torch import bench, native
-    from dust_tpu_torch.ops import hdda
+    from dust_tpu_torch.ops import gbuffer, hdda
     from dust_tpu_torch.tools.rmse import rmse as rmse_np
 
     card = bench.card_name()
@@ -1739,6 +1950,8 @@ def main() -> int:
         for m in hdda.MODES:
             hdda.LAUNCHES[m] = 0
             hdda.INSTANCE_LAUNCHES[m] = 0
+        for k in gbuffer.LAUNCHES:
+            gbuffer.LAUNCHES[k] = 0
 
     def rmse(a, b):
         return rmse_np(a.float().cpu().numpy(), b.float().cpu().numpy())
@@ -1746,6 +1959,9 @@ def main() -> int:
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
     lib = hdda.build_library(verbose=True)
+    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lib = gbuffer.build_library(verbose=True)
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     lib = native.build_library()
@@ -1766,6 +1982,7 @@ def main() -> int:
     reset_counts()
     out, times = _timed_frames(ctx, FRAMES, first=1)
     _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, FRAMES, "hdda_scene")
+    _check_launches(gbuffer.LAUNCHES, GBUFFER_LAUNCHES, FRAMES, "G-buffer")
     for k in kernels:
         k["launches"] = hdda.LAUNCHES[k["name"][len("hdda_scene<"):-1]]
     _report_frame("castle+teapot dense GI", ctx, out, times, card)
@@ -1926,6 +2143,19 @@ def main() -> int:
     # ---- 24. the native scene build -------------------------------------
     native_build = _native_phase(dev, card, edit_times)
 
+    # ---- 25. the primary stage's G-buffer kernels ------------------------
+    gbuffer_held = _gbuffer_phase(dev, card)
+    for name in GBUFFER_LAUNCHES:
+        h = gbuffer_held[f"gbuffer {WIDTH}x{HEIGHT}"][name]
+        h4 = gbuffer_held[f"gbuffer {WIDTH_4K}x{HEIGHT_4K}"][name]
+        kernels.append(dict(
+            name=f"{name}_kernel", route="cuda",
+            source="dust_tpu_torch/csrc/gbuffer.cu", replaces=None,
+            launches=FRAMES, max_abs_err=0.0, ms=h["ms"],
+            plain_ms=h["plain_ms"], bound_ms=h["bound_ms"], bound_by="bytes",
+            library_ms=None, gi_4k=dict(ms=h4["ms"], bound_ms=h4["bound_ms"],
+                                        bound_by="bytes")))
+
     for k in kernels:
         if k["name"].startswith("hdda_scene<"):
             mode = k["name"][len("hdda_scene<"):-1]
@@ -1954,7 +2184,8 @@ def main() -> int:
                                in loop_frame_ms.items()}
     print(json.dumps({"eager_backend": eager, "gates": gates,
                       "edits": edit_times, "flythrough_sharded": sharded,
-                      "tools": tools, "native": native_build}))
+                      "tools": tools, "native": native_build,
+                      "gbuffer": gbuffer_held}))
     for mode in hdda.MODES:
         h = stress_held[mode]
         print(f"stress hdda_scene<{mode}>: {h['ms']:.3f} ms per launch at "

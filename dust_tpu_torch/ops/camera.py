@@ -13,8 +13,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dust_tpu_torch.ops import gbuffer
+
 __all__ = ["CameraSettings", "camera_settings", "camera_ray_dirs", "look_at",
-           "perspective_infinite_reverse"]
+           "perspective_infinite_reverse", "primary_rays",
+           "primary_rays_plain"]
 
 
 class CameraSettings(NamedTuple):
@@ -82,3 +85,36 @@ def camera_ray_dirs(cam: CameraSettings, width: int,
     m = cam.view_cols
     return torch.stack([m[i, 0] * cx + m[i, 1] * cy - m[i, 2]
                         for i in range(3)], dim=-1)
+
+
+def primary_rays_plain(cam: CameraSettings, width: int, height: int,
+                       tiled: bool, lo: int, hi: int):
+    """The plain version of :func:`primary_rays`."""
+    d = camera_ray_dirs(cam, width, height)
+    if tiled:
+        d = torch.movedim(d.reshape(height // 8, 8, width // 128, 128, 3),
+                          2, 0)
+    return (cam.position.expand(hi - lo, 3).contiguous(),
+            d.reshape(width * height, 3)[lo:hi])
+
+
+def primary_rays(cam: CameraSettings, width: int, height: int, tiled: bool,
+                 lo: int = 0, hi: int | None = None):
+    """The camera rays ``[lo, hi)`` of the image (default: all of them) in
+    the order the trace takes them: with ``tiled``, 8×128-pixel tiles
+    (the image must divide into them), raster order otherwise. Returns
+    (origins, directions), each (hi - lo, 3) float32: the camera position
+    and :func:`camera_ray_dirs`' directions.
+
+    CPU tensors run :func:`primary_rays_plain`; CUDA tensors launch
+    ``primary_rays_kernel`` (:mod:`dust_tpu_torch.ops.gbuffer`)."""
+    n = width * height
+    hi = n if hi is None else hi
+    if not 0 <= lo <= hi <= n:
+        raise ValueError(f"rays [{lo}, {hi}) of {n}")
+    if tiled and (height % 8 or width % 128):
+        raise ValueError(f"{width}x{height} does not divide into 8x128 "
+                         "tiles")
+    if cam.position.device.type == "cpu":
+        return primary_rays_plain(cam, width, height, tiled, lo, hi)
+    return gbuffer.rays(cam, width, height, tiled, lo, hi)

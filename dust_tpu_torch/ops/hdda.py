@@ -596,27 +596,29 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIB = None
 
 
-def _nvcc() -> str:
+def _nvcc(source: Path = _SOURCE) -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the HDDA kernel is built from "
-                           f"{_SOURCE} with the CUDA toolkit")
+        raise RuntimeError(f"nvcc not found: {source.name} is built with "
+                           "the CUDA toolkit")
     return path
 
 
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/hdda.cu`` into ``build/dust_tpu_torch/`` unless a
-    library built from the same source and flags is already there."""
-    src = _SOURCE.read_bytes()
+def build_cuda(source: Path, stem: str, verbose: bool = False) -> Path:
+    """Compile the CUDA source ``source`` with :data:`NVCC_FLAGS` into
+    ``build/dust_tpu_torch/lib<stem>_<hash>.so`` unless a library built
+    from the same source and flags is already there."""
+    src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libhdda_{tag}.so"
+    out = _BUILD_DIR / f"lib{stem}_{tag}.so"
     if out.exists():
         return out
+    nvcc = _nvcc(source)
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(_SOURCE)]
+    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o",
+           tmp, str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -625,6 +627,11 @@ def build_library(verbose: bool = False) -> Path:
         print(proc.stderr, end="")
     os.replace(tmp, out)
     return out
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile ``csrc/hdda.cu`` (:func:`build_cuda`)."""
+    return build_cuda(_SOURCE, "hdda", verbose)
 
 
 def _library():

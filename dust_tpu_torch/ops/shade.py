@@ -7,12 +7,14 @@ from __future__ import annotations
 
 import torch
 
+from dust_tpu_torch.ops import gbuffer
 from dust_tpu_torch.ops import packing as pk
 from dust_tpu_torch.ops.fp import fma
+from dust_tpu_torch.ops.sky import primary_sky
 from dust_tpu_torch.vox.geometry import unpack_r10g10b10a2
 
-__all__ = ["resolve_hits", "leaf_attributes", "entry_face",
-           "entry_leaf_center"]
+__all__ = ["resolve_hits", "resolve_primary", "resolve_hits_plain",
+           "leaf_attributes", "entry_face", "entry_leaf_center"]
 
 
 def _inst_xform(arrs, inst, p, with_translation: bool):
@@ -42,7 +44,25 @@ def _along(o, d, t):
 
 def resolve_hits(scene, res, origin_w, dir_w):
     """Per-pixel primary-hit attributes; miss lanes carry the miss values
-    (albedo 1, depth inf, motion 0)."""
+    (albedo 1, depth inf, motion 0). :func:`resolve_primary` without the
+    sky."""
+    return resolve_primary(scene, res, origin_w, dir_w, None)
+
+
+def resolve_primary(scene, res, origin_w, dir_w, sky_state):
+    """The primary stage's G-buffer: :func:`resolve_hits`' dict, which with
+    ``sky_state`` also holds ``sky_out``,
+    :func:`~dust_tpu_torch.ops.sky.primary_sky` of ``dir_w``.
+
+    CPU tensors run :func:`resolve_hits_plain`; CUDA tensors launch
+    ``gbuffer_resolve_kernel`` (:mod:`dust_tpu_torch.ops.gbuffer`)."""
+    if origin_w.device.type == "cpu":
+        return resolve_hits_plain(scene, res, origin_w, dir_w, sky_state)
+    return gbuffer.resolve(scene, res, origin_w, dir_w, sky_state)
+
+
+def resolve_hits_plain(scene, res, origin_w, dir_w, sky_state=None):
+    """The plain version of :func:`resolve_primary`."""
     hit = res.inst >= 0
     inst = torch.clamp(res.inst, min=0).long()
     base = torch.tensor(scene.inst_leaf_base, dtype=torch.long,
@@ -88,7 +108,7 @@ def resolve_hits(scene, res, origin_w, dir_w):
     # | 8 bit voxel id | 8 bit palette | 16 bit instance | (as int64)
     voxel_id = torch.where(hit, (bit << 24) | (palette_idx << 16)
                            | (inst & 0xFFFF), 0)
-    return dict(
+    g = dict(
         hit=hit,
         inst=inst,
         depth=torch.where(hit, res.t, float("inf")),
@@ -99,6 +119,9 @@ def resolve_hits(scene, res, origin_w, dir_w):
         world_pos=torch.where(hit[:, None], hit_w, 0.0),
         palette_idx=palette_idx,
     )
+    if sky_state is not None:
+        g["sky_out"] = primary_sky(sky_state, dir_w)
+    return g
 
 
 def _hit_obj(scene, res, origin_w, dir_w):

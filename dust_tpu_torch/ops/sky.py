@@ -17,9 +17,11 @@ import numpy as np
 import torch
 
 from dust_tpu_torch.config import SunlightSettings
+from dust_tpu_torch.ops import packing as pk
 from dust_tpu_torch.utils import color as colorlib
 
-__all__ = ["SkyModelState", "bake_sky", "sky_radiance", "sun_radiance"]
+__all__ = ["SkyModelState", "bake_sky", "sky_radiance", "sun_radiance",
+           "primary_sky"]
 
 _DATASET = Path(__file__).resolve().parents[1] / "assets" / "hosek_sky.npz"
 
@@ -92,7 +94,8 @@ def bake_sky(s: SunlightSettings, device) -> SkyModelState:
         turb_low + 1, elevation, data)
 
     def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return torch.as_tensor(np.array(a, np.float32, order="C"),
+                               device=device)
 
     return SkyModelState(configs=t(cfg.T), radiances=t(rad),
                          ld_coefs=t(data["solar_ld"].T), direction=t(direction),
@@ -143,3 +146,10 @@ def sun_radiance(state: SkyModelState, dirs: torch.Tensor) -> torch.Tensor:
     out = colorlib.xyz_to_acescg(state.solar_intensity * darkening)
     visible = (cos_gamma >= 0.0) & (dirs[..., 1] >= 0.0) & (sc2 > 0.0)
     return torch.where(visible[..., None], out, 0.0)
+
+
+def primary_sky(state: SkyModelState, dirs: torch.Tensor) -> torch.Tensor:
+    """What a primary ray that misses writes to the output: the sky and sun
+    radiance of its normalised direction over 3.14; ``dirs`` (N, 3)."""
+    dirs_n = dirs / pk.norm3(dirs, keepdim=True)
+    return (sky_radiance(state, dirs_n) + sun_radiance(state, dirs_n)) / 3.14

@@ -223,13 +223,18 @@ def _cell_enumeration(scene):
     return centers, vleafs
 
 
+def _tiled(H: int, W: int, tiled: bool) -> bool:
+    """Whether the ray arrays are in 8×128-pixel tiles: with ``tiled``
+    (the HDDA kernel's backend), when the image divides into them (a warp
+    then walks neighbouring pixels); else they are in raster order."""
+    return tiled and H % 8 == 0 and W % 128 == 0
+
+
 def _tiling(H: int, W: int, tiled: bool):
-    """Pixel order of the ray arrays: with ``tiled`` (the HDDA kernel's
-    backend), 8×128-pixel tiles when the image divides into them (a warp
-    then walks neighbouring pixels), raster order otherwise. Returns
-    (to_tiles, from_tiles)."""
+    """Pixel order of the ray arrays (:func:`_tiled`). Returns (to_tiles,
+    from_tiles)."""
     n = H * W
-    tiled = tiled and H % 8 == 0 and W % 128 == 0
+    tiled = _tiled(H, W, tiled)
 
     def to_tiles(img):
         if not tiled:
@@ -375,16 +380,13 @@ def _render_frame(scene, state, cam, sky_state, bn_cosine, bn_scalar,
 
     # -------------------------------------------------- 1. primary
     with trace_annotation("dust.primary"):
-        dirs = to_tiles(cameralib.camera_ray_dirs(cam, W, H))[lo:hi]
-        origins = cam.position.expand(m, 3).contiguous()
+        origins, dirs = cameralib.primary_rays(
+            cam, W, H, _tiled(H, W, pallas), lo, hi)
         primary = trace(origins, dirs, cam.near, cam.far, "precise")
-        g = shade.resolve_hits(scene, primary, origins, dirs)
+        g = shade.resolve_primary(scene, primary, origins, dirs, sky_state)
+        sky_out = g.pop("sky_out")
         g, mat_emissive = apply_materials(g, settings.instance_materials)
         hit = g["hit"]
-
-        dirs_n = dirs / pk.norm3(dirs, keepdim=True)
-        sky_out = (skylib.sky_radiance(sky_state, dirs_n)
-                   + skylib.sun_radiance(sky_state, dirs_n)) / 3.14
 
     # -------------------------------------------------- 2. sun NEE
     with trace_annotation("dust.sun"):
