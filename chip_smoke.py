@@ -152,7 +152,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    replay) beside its bound (its bytes at the memory rate) and the plain
    version's host-issued time; and at both sizes one
    frame through the kernels and through the plain versions from one
-   state: output, aux and new state equal.
+   state: output, aux and new state equal;
+26. the spatial hash's kernels (dust_tpu_torch/csrc/spatial_hash.cu:
+   spatial_hash_probe_kernel and the insert's keys, scan_up, scan_blocks,
+   scan and apply kernels) held against their plain versions on the card
+   (torch.equal): the LogLuv codec on every 32-bit word and 2^24 colours;
+   three rounds of the insert at the castle-hash cell's size (2^25 slots,
+   345,600 keys with repeats, evictions, the 131,072 cap reached) and
+   small inserts (partial scan blocks, no cap, every key valid); the
+   working-set probe of the 1080p hash frame's table, every row and four
+   rotating slices; then 4 hash frames at 1920x1080 with one launch of
+   each kernel a frame, and one frame through the kernels and through the
+   plain versions from one state (output, aux and new state, the table
+   included, equal); each kernel's time (CUDA-graph replay) beside the
+   floor of benchmark/hashwork.py.
 
 Every config is built and rendered through the bench module
 (dust_tpu_torch/bench.py). Before the result it prints each scene-kernel
@@ -240,6 +253,12 @@ NATIVE_REPS = 5
 # bit), the ray (origin, direction) and the 32-byte sector of its voxel
 # word; its writes are the G-buffer's own bytes.
 GBUFFER_READ_BYTES = 16 + 24 + 32
+# The hash's kernels (csrc/spatial_hash.cu, phase 26): the castle-hash
+# cell's table and insert cap, and the kernels a hash frame launches once
+# each.
+HASH_CAPACITY = 1 << 25
+HASH_INSERT_CAP = 1 << 17
+HASH_KERNELS = ("probe", "keys", "scan_up", "scan_blocks", "scan", "apply")
 
 
 def _setup(device, width, height, config="gi", capacity=None, pool=None,
@@ -1828,24 +1847,25 @@ def _gbuffer_case(label, scene, cam, sky, width, height, tiled, lo=0,
     return out
 
 
-def _gbuffer_frame_equal(label, ctx, frame=3):
-    """Frame ``frame`` of ctx from its state through the G-buffer kernels
-    and through their plain versions (the entry points swapped for them):
-    output, aux and new state equal (torch.equal)."""
+def _frame_equal(label, what, ctx, frame, swaps):
+    """Frame ``frame`` of ctx from its state through the kernels and
+    through their plain versions (each ``(module, name, plain)`` of
+    ``swaps``: the entry point ``module.name`` swapped for ``plain``):
+    output, aux and new state equal (torch.equal). Returns the kernels'
+    new state."""
     import dataclasses
 
     import torch
-    from dust_tpu_torch.ops import camera as cameralib
-    from dust_tpu_torch.ops import shade
 
-    entry = (cameralib.primary_rays, shade.resolve_primary)
+    entry = [getattr(module, name) for module, name, _ in swaps]
     try:
         out_k, aux_k, st_k = _render(ctx, frame, ctx["state"], True)
-        cameralib.primary_rays = cameralib.primary_rays_plain
-        shade.resolve_primary = shade.resolve_hits_plain
+        for module, name, plain in swaps:
+            setattr(module, name, plain)
         out_p, aux_p, st_p = _render(ctx, frame, ctx["state"], True)
     finally:
-        cameralib.primary_rays, shade.resolve_primary = entry
+        for (module, name, _), fn in zip(swaps, entry):
+            setattr(module, name, fn)
 
     def leaves(x):
         if isinstance(x, torch.Tensor):
@@ -1862,11 +1882,22 @@ def _gbuffer_frame_equal(label, ctx, frame=3):
     same = len(a) == len(b) and all(
         torch.equal(u, v) if isinstance(u, torch.Tensor) else u == v
         for u, v in zip(a, b))
-    print(f"{label}: frame {frame} through the G-buffer kernels and through "
+    print(f"{label}: frame {frame} through the {what} kernels and through "
           f"their plain versions: output, aux and state equal {same} "
           f"({len(a)} fields)")
     if not same:
         raise SystemExit(f"{label}: the frame differs from the plain path's")
+    return st_k
+
+
+def _gbuffer_frame_equal(label, ctx, frame=3):
+    """:func:`_frame_equal` of the G-buffer kernels' entry points."""
+    from dust_tpu_torch.ops import camera as cameralib
+    from dust_tpu_torch.ops import shade
+
+    return _frame_equal(label, "G-buffer", ctx, frame, [
+        (cameralib, "primary_rays", cameralib.primary_rays_plain),
+        (shade, "resolve_primary", shade.resolve_hits_plain)])
 
 
 def _gbuffer_phase(dev, card):
@@ -1921,6 +1952,261 @@ def _gbuffer_phase(dev, card):
         WIDTH, HEIGHT, True, instances=3)
     return out
 
+def _hash_codec_equal(dev, chunk=1 << 26, colours=1 << 24, seed=0):
+    """Phase 26: the hash kernels' LogLuv codec
+    (``spatial_hash_logluv_kernel``) against packing.py's on the card:
+    every 32-bit word decoded (each float's bits equal), and ``colours``
+    ACEScg colours encoded (words equal): components log-uniform over
+    1e-12..1e8, a tenth of them 0, a twentieth negative, and rows of
+    infinities, NaN, subnormals and the largest float. Returns a dict of
+    the counts checked."""
+    import torch
+    from dust_tpu_torch.ops import packing as pk
+    from dust_tpu_torch.ops import spatial_hash as sh
+
+    for start in range(0, 1 << 32, chunk):
+        words = torch.arange(start, start + chunk, dtype=torch.int64,
+                             device=dev)
+        words = ((words ^ 0x80000000) - 0x80000000).int()
+        k = sh.logluv(words).view(torch.int32)
+        p = pk.decode_logluv(words).view(torch.int32)
+        bad = (k != p).any(dim=1)
+        if bool(bad.any()):
+            w = words[bad][:4].tolist()
+            raise SystemExit(
+                f"LogLuv decode: kernel and plain differ on "
+                f"{int(bad.sum())} words of [{start}, {start + chunk}), "
+                f"e.g. {w}: kernel {k[bad][:4].tolist()}, plain "
+                f"{p[bad][:4].tolist()}")
+        del words, k, p, bad
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rgb = 10.0 ** (torch.rand((colours, 3), generator=g) * 20.0 - 12.0)
+    u = torch.rand((colours, 3), generator=g)
+    rgb = torch.where(u < 0.1, 0.0, torch.where(u > 0.95, -rgb, rgb))
+    special = torch.tensor([[float("inf"), 1.0, 1.0], [1.0, float("inf"), 0.0],
+                            [float("nan"), 1.0, 1.0], [1.0, float("nan"), 1.0],
+                            [1e-40, 1e-40, 1e-40], [0.0, 1e-45, 0.0],
+                            [3.4e38, 3.4e38, 3.4e38], [-0.0, -0.0, -0.0],
+                            [-float("inf"), 2.0, 3.0]])
+    rgb = torch.cat([special, rgb]).to(dev)
+    k = sh.logluv(rgb)
+    p = pk.encode_logluv(rgb)
+    p = ((p ^ 0x80000000) - 0x80000000).int()
+    bad = k != p
+    if bool(bad.any()):
+        raise SystemExit(
+            f"LogLuv encode: kernel and plain differ on {int(bad.sum())} of "
+            f"{rgb.shape[0]} colours, e.g. {rgb[bad][:4].tolist()}: kernel "
+            f"{k[bad][:4].tolist()}, plain {p[bad][:4].tolist()}")
+    print(f"hash codec: every 32-bit LogLuv word decoded and "
+          f"{rgb.shape[0]} colours encoded, kernel equal to packing.py's")
+    return dict(words=1 << 32, colours=rgb.shape[0])
+
+
+def _hash_filled_table(capacity, dev, share=0.5, seed=0):
+    """A table whose groups are occupied in ``share`` of them: every slot
+    of such a group holds a nonzero fingerprint, a LogLuv word, a last
+    frame in [0, 100) and a count in [1, 404] (keys that land there evict
+    by LRU), the rest empty."""
+    import torch
+    from dust_tpu_torch.ops import spatial_hash as sh
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ngroups = capacity // 4
+    slots = torch.randint(1, 2 ** 31 - 1, (ngroups, 4, 4), generator=g,
+                          device=dev, dtype=torch.int32)
+    slots[..., 2] = torch.randint(0, 100, (ngroups, 4), generator=g,
+                                  device=dev, dtype=torch.int32)
+    slots[..., 3] = torch.randint(1, 405, (ngroups, 4), generator=g,
+                                  device=dev, dtype=torch.int32)
+    used = torch.rand(ngroups, generator=g, device=dev) < share
+    return sh.SpatialHash(table=torch.where(used[:, None], slots.reshape(
+        ngroups, 16), 0))
+
+
+def _hash_insert_case(label, dev, capacity, n, cap, rounds=3, seed=0,
+                      all_valid=False):
+    """Phase 26: the insert's kernels against ``hash_insert_plain`` on the
+    card, ``rounds`` inserts of ``n`` keys into one table (each round into
+    the kernels' table of the round before), tables equal (torch.equal).
+    The keys repeat (a key drawn from n / 2 cells, so runs of one key in a
+    round and matches across rounds); half the groups start full, so keys
+    evict. Returns a dict: applied groups and evictions of the last round,
+    and whether the cap bound."""
+    import torch
+    from dust_tpu_torch.ops import spatial_hash as sh
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table = _hash_filled_table(capacity, dev, seed=seed)
+    ncells = max(n // 2, 1)
+    cell_q = torch.randint(-4000, 4000, (ncells, 3), generator=g,
+                           dtype=torch.int32)
+    cell_f = torch.randint(0, 6, (ncells,), generator=g, dtype=torch.int32)
+    out = {}
+    for r in range(rounds):
+        pick = torch.randint(0, ncells, (n,), generator=g)
+        q, f = cell_q[pick].to(dev), cell_f[pick].to(dev)
+        scale = 10.0 ** (torch.rand((n, 1), generator=g) * 5.0 - 3.0)
+        value = (torch.rand((n, 3), generator=g) * scale).to(dev)
+        valid = None if all_valid else (
+            torch.rand(n, generator=g) < 0.9).to(dev)
+        before = dict(sh.LAUNCHES)
+        k = sh.hash_insert(table, q, f, value, 7 + r, valid=valid,
+                           max_updates=cap)
+        p = sh.hash_insert_plain(table, q, f, value, 7 + r, valid=valid,
+                                 max_updates=cap)
+        grew = {name: sh.LAUNCHES[name] - before[name] for name in before}
+        want = dict.fromkeys(before, 1)
+        want.update(probe=0, logluv=0)
+        if grew != want:
+            raise SystemExit(f"{label}: launches {grew}, expected {want}")
+        if not torch.equal(k.table, p.table):
+            rows = int((k.table != p.table).any(dim=1).sum())
+            raise SystemExit(f"{label} round {r}: kernel and plain tables "
+                             f"differ in {rows} group rows")
+        old = table.table.view(-1, 4, 4)
+        new = k.table.view(-1, 4, 4)
+        changed = (old != new).any(dim=2)          # (groups, slots)
+        evicted = changed & (old[..., 0] != 0) & (old[..., 0] != new[..., 0])
+        groups = int(changed.any(dim=1).sum())
+        keys = sh.key_location(q.long(), f.long(), capacity) >> 2
+        live = keys if valid is None else keys[valid]
+        distinct = int(torch.unique(live).numel())
+        out = dict(keys=n, applied_groups=groups,
+                   evictions=int(evicted.sum()), groups_with_keys=distinct,
+                   cap=cap, cap_bound=cap is not None and distinct > cap)
+        table = k
+    print(f"{label}: {rounds} rounds of {n} keys into {capacity} slots, "
+          f"kernel tables equal to the plain version's; last round "
+          f"{out['applied_groups']} groups written of "
+          f"{out['groups_with_keys']} with keys (cap {cap}), "
+          f"{out['evictions']} evictions")
+    return out
+
+
+def _hash_probe_case(label, ctx, slices=4):
+    """Phase 26: the working-set probe kernel against its plain version on
+    ctx's scene and table: every row, then each of ``slices`` rotating
+    slices of a copy (torch.equal). Returns a dict of the counts."""
+    import torch
+    from dust_tpu_torch.ops import gi_cache as gilib
+    from dust_tpu_torch.ops import spatial_hash as sh
+    from dust_tpu_torch.render import pipeline
+
+    scene, state = ctx["scene"], ctx["state"]
+    centers, vleaf = pipeline._cell_enumeration(scene)
+    cs = ctx["settings"].spatial_hash.cell_size
+    alb = gilib.albedo_words(scene)
+    before = sh.LAUNCHES["probe"]
+    k = sh.probe_working_set(state.gi, centers, vleaf, cs, albedo=alb)
+    p = sh.probe_working_set_plain(state.gi, centers, vleaf, cs, albedo=alb)
+    if not torch.equal(k, p):
+        raise SystemExit(f"{label}: kernel and plain working sets differ in "
+                         f"{int((k != p).any(dim=1).sum())} rows")
+    rows = k.shape[0]
+    found = int(((k[:, 1] >> 16) & 0xFFFF).ne(0).sum())
+    size = -(-rows // slices)
+    for s in range(slices):
+        lo = min(s * size, rows - size)
+        ws = k.clone()
+        ws[:, :2] = 0
+        kk = sh.probe_working_set(state.gi, centers, vleaf, cs, ws=ws, lo=lo,
+                                  hi=lo + size)
+        pp = sh.probe_working_set_plain(state.gi, centers, vleaf, cs, ws=ws,
+                                        lo=lo, hi=lo + size)
+        if not torch.equal(kk, pp):
+            raise SystemExit(f"{label}: slice [{lo}, {lo + size}) differs in "
+                             f"{int((kk != pp).any(dim=1).sum())} rows")
+    if sh.LAUNCHES["probe"] != before + 1 + slices:
+        raise SystemExit(f"{label}: {sh.LAUNCHES['probe'] - before} probe "
+                         f"launches, expected {1 + slices}")
+    print(f"{label}: {rows} working-set keys ({centers.shape[0]} cells), "
+          f"{found} found in the table; the kernel equal to the plain "
+          f"version on every row and on {slices} rotating slices")
+    if not 0 < found < rows:
+        raise SystemExit(f"{label}: {found} of {rows} keys found")
+    return dict(rows=rows, cells=centers.shape[0], found=found)
+
+
+def _hash_frame_equal(label, ctx, frame):
+    """:func:`_frame_equal` of the hash kernels' entry points (the new
+    state holds the table)."""
+    from dust_tpu_torch.ops import spatial_hash as sh
+
+    return _frame_equal(label, "hash", ctx, frame, [
+        (sh, "probe_working_set", sh.probe_working_set_plain),
+        (sh, "hash_insert", sh.hash_insert_plain)])
+
+
+def _hash_phase_26(dev, card):
+    """26. The hash's kernels held and timed (module docstring); a dict of
+    the phase's numbers."""
+    import torch
+    from benchmark import hashwork
+    from dust_tpu_torch.ops import gi_cache as gilib
+    from dust_tpu_torch.ops import spatial_hash as sh
+    from dust_tpu_torch.render import pipeline
+
+    out = {"codec": _hash_codec_equal(dev)}
+    out["insert"] = _hash_insert_case(
+        "hash insert at the cell's size", dev, HASH_CAPACITY, HASH_POOL,
+        HASH_INSERT_CAP)
+    if not (out["insert"]["cap_bound"] and out["insert"]["evictions"] > 0):
+        raise SystemExit(f"hash insert: want the cap reached and evictions, "
+                         f"got {out['insert']}")
+    for n, cap in ((1000, None), (1024, None), (4097, 100)):
+        _hash_insert_case(f"hash insert of {n} keys", dev, 1 << 16, n, cap,
+                          rounds=2, seed=n, all_valid=n == 1024)
+    ctx = _setup(dev, WIDTH, HEIGHT, "hash-reference")
+    for k in sh.LAUNCHES:
+        sh.LAUNCHES[k] = 0
+    _frames(ctx, FRAMES)
+    want = {k: FRAMES for k in HASH_KERNELS}
+    got = {k: sh.LAUNCHES[k] for k in HASH_KERNELS}
+    if got != want:
+        raise SystemExit(f"hash frame: launches {got} over {FRAMES} frames, "
+                         f"expected {want}")
+    out["probe"] = _hash_probe_case("hash probe at the cell's size", ctx)
+    ctx["state"] = _hash_frame_equal(f"hash {WIDTH}x{HEIGHT}", ctx, FRAMES)
+
+    # Each kernel's time, on the next frame's own probe and insert.
+    calls = []
+    _recorded_frame(ctx, FRAMES + 1, sh, "hash_insert",
+                    lambda a, kw: calls.append((a, kw)))
+    a, kw = calls[0]
+    args, _table = sh._insert_args(*a[:5], kw.get("valid"),
+                                   kw.get("max_updates"))
+    sh._insert_run(args, dev)
+    scene, state = ctx["scene"], ctx["state"]
+    centers, vleaf = pipeline._cell_enumeration(scene)
+    cs = ctx["settings"].spatial_hash.cell_size
+    alb = gilib.albedo_words(scene)
+    times = {"probe": _kernel_ms(lambda: sh.probe_working_set(
+        state.gi, centers, vleaf, cs, albedo=alb))}
+    for step, name in enumerate(sh._INSERT_STEPS):
+        times[name] = _kernel_ms(lambda: sh._insert_step(args, dev, step))
+    times["sort (torch)"] = _kernel_ms(
+        lambda: torch.sort(args.keep["gkey"], stable=True))
+    keys = 6 * centers.shape[0]
+    pool = a[1].reshape(-1, 3).shape[0]
+    floor = {"probe": 1e3 * hashwork.probe_bytes(keys, centers.shape[0])
+             / hashwork.MEM_BYTES_PER_S,
+             "insert": 1e3 * hashwork.insert_bytes(pool)
+             / hashwork.MEM_BYTES_PER_S}
+    insert_ms = sum(times[n] for n in sh._INSERT_STEPS)
+    for name, ms in times.items():
+        print(f"hash {name}: {ms:.4f} ms a launch (CUDA-graph replay) "
+              f"[{card}]")
+    print(f"hash probe: {keys} keys, floor {floor['probe']:.4f} ms, "
+          f"{100.0 * floor['probe'] / times['probe']:.1f}% of it; insert "
+          f"kernels {insert_ms:.4f} ms over {pool} keys, floor "
+          f"{floor['insert']:.4f} ms, "
+          f"{100.0 * floor['insert'] / insert_ms:.1f}% (benchmark/hashwork.py "
+          f"at 3.35 TB/s) [{card}]")
+    out.update(ms=times, floor_ms=floor, keys=dict(probe=keys, insert=pool))
+    del ctx, args
+    return out
+
 
 def main() -> int:
     import numpy as np
@@ -1937,7 +2223,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, here)
     from dust_tpu_torch import bench, native
-    from dust_tpu_torch.ops import gbuffer, hdda
+    from dust_tpu_torch.ops import gbuffer, hdda, spatial_hash
     from dust_tpu_torch.tools.rmse import rmse as rmse_np
 
     card = bench.card_name()
@@ -1952,6 +2238,8 @@ def main() -> int:
             hdda.INSTANCE_LAUNCHES[m] = 0
         for k in gbuffer.LAUNCHES:
             gbuffer.LAUNCHES[k] = 0
+        for k in spatial_hash.LAUNCHES:
+            spatial_hash.LAUNCHES[k] = 0
 
     def rmse(a, b):
         return rmse_np(a.float().cpu().numpy(), b.float().cpu().numpy())
@@ -1962,6 +2250,9 @@ def main() -> int:
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     lib = gbuffer.build_library(verbose=True)
+    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lib = spatial_hash.build_library(verbose=True)
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     lib = native.build_library()
@@ -2156,6 +2447,18 @@ def main() -> int:
             library_ms=None, gi_4k=dict(ms=h4["ms"], bound_ms=h4["bound_ms"],
                                         bound_by="bytes")))
 
+    # ---- 26. the spatial hash's kernels -----------------------------------
+    hash_held = _hash_phase_26(dev, card)
+    for name in HASH_KERNELS:
+        kernels.append(dict(
+            name=f"spatial_hash_{name}_kernel", route="cuda",
+            source="dust_tpu_torch/csrc/spatial_hash.cu", replaces=None,
+            launches=FRAMES, max_abs_err=0.0, ms=hash_held["ms"][name],
+            plain_ms=None,
+            bound_ms=hash_held["floor_ms"]["probe" if name == "probe"
+                                          else "insert"],
+            bound_by="bytes", library_ms=None))
+
     for k in kernels:
         if k["name"].startswith("hdda_scene<"):
             mode = k["name"][len("hdda_scene<"):-1]
@@ -2185,7 +2488,7 @@ def main() -> int:
     print(json.dumps({"eager_backend": eager, "gates": gates,
                       "edits": edit_times, "flythrough_sharded": sharded,
                       "tools": tools, "native": native_build,
-                      "gbuffer": gbuffer_held}))
+                      "gbuffer": gbuffer_held, "spatial_hash": hash_held}))
     for mode in hdda.MODES:
         h = stress_held[mode]
         print(f"stress hdda_scene<{mode}>: {h['ms']:.3f} ms per launch at "

@@ -26,7 +26,7 @@ from dust_tpu_torch.render.scene import pad_rows_past_dead_zone
 __all__ = ["DenseGICache", "make_dense_gi_cache", "dense_rows", "dense_cells",
            "cell_layout", "padded_cells", "dense_index", "dense_get",
            "dense_update", "dense_update_slice", "dense_update_rows",
-           "pack_working_set",
+           "pack_working_set", "albedo_words",
            "pack_working_set_rows", "refresh_dense_albedo",
            "MAX_SAMPLE_COUNT"]
 
@@ -80,7 +80,7 @@ def dense_rows(scene) -> int:
     return dense_cells(scene) * 6
 
 
-def _albedo_words(scene) -> torch.Tensor:
+def albedo_words(scene) -> torch.Tensor:
     """(rows,) albedo word per row: the leaf's average albedo for each of
     its 6 faces, zero in the padding."""
     _, caps, _ = cell_layout(scene)
@@ -93,7 +93,7 @@ def _albedo_words(scene) -> torch.Tensor:
 
 
 def make_dense_gi_cache(scene) -> DenseGICache:
-    alb6 = _albedo_words(scene)
+    alb6 = albedo_words(scene)
     zeros = torch.zeros_like(alb6)
     return DenseGICache(table=torch.stack([zeros, zeros, alb6], dim=-1))
 
@@ -107,7 +107,7 @@ def refresh_dense_albedo(cache: DenseGICache, scene,
     edits. ``rows``: the rows of the scene's table that ``cache`` holds
     (a rank's chunk under a mesh)."""
     return DenseGICache(table=torch.stack(
-        [cache.table[:, 0], cache.table[:, 1], _albedo_words(scene)[rows]],
+        [cache.table[:, 0], cache.table[:, 1], albedo_words(scene)[rows]],
         dim=-1))
 
 
@@ -125,7 +125,7 @@ def pack_working_set(radiance, count, scene) -> DenseGICache:
     """The hash frame's working set: one probed radiance and count per
     (instance, leaf, face) row, with the rows' albedo words."""
     return DenseGICache(table=pack_working_set_rows(
-        radiance, count, _albedo_words(scene)[:, None]))
+        radiance, count, albedo_words(scene)[:, None]))
 
 
 def dense_index(scene, inst, row, face) -> torch.Tensor:

@@ -17,23 +17,52 @@ the reference's), the first run of each group applies, and the new rows
 replace the old in one row copy. Unsigned 32-bit hashing runs in int64
 masked to 32 bits (torch's ``uint32`` lacks multiply and shifts on many
 backends).
+
+The frame's two uses have kernels in ``csrc/spatial_hash.cu``:
+:func:`probe_working_set` (the working set's probe and packing) and
+:func:`hash_insert`. On CPU tensors they run their plain versions,
+:func:`probe_working_set_plain` and :func:`hash_insert_plain` (this
+module's torch code); on CUDA tensors they launch the kernels, and on
+any other device they raise. The library is built at first use with the
+HDDA kernel's flags (:func:`dust_tpu_torch.ops.hdda.build_cuda`:
+``-fmad=false``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from dust_tpu_torch.ops import gi_cache as gilib
+from dust_tpu_torch.ops import hdda
+from dust_tpu_torch.ops import packing as pk
 from dust_tpu_torch.ops.fp import as_i32, as_u32, fma
 from dust_tpu_torch.ops.packing import decode_logluv, encode_logluv
+from dust_tpu_torch.utils import color as colorlib
 
 __all__ = ["SpatialHash", "make_spatial_hash", "hash_get", "hash_insert",
-           "spatial_hash_key", "key_fingerprint", "key_location",
+           "hash_insert_plain", "probe_working_set",
+           "probe_working_set_plain", "spatial_hash_key", "key_fingerprint",
+           "key_location", "build_library", "logluv", "LAUNCHES",
            "MAX_SAMPLE_COUNT"]
 
 MAX_SAMPLE_COUNT = 404
 _M32 = 0xFFFFFFFF
+
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "spatial_hash.cu"
+_LIB = None
+# Keys a scan block of the insert's suffix sums (kScanBlock in the source).
+_SCAN_BLOCK = 1024
+
+# Launches of each kernel (spatial_hash_<name>_kernel) since the last
+# reset; the plain versions count nothing.
+LAUNCHES = {"probe": 0, "keys": 0, "scan_up": 0, "scan_blocks": 0,
+            "scan": 0, "apply": 0, "logluv": 0}
 
 
 class SpatialHash(NamedTuple):
@@ -189,7 +218,22 @@ def hash_insert(hash_: SpatialHash, qpos: torch.Tensor, face_id: torch.Tensor,
     deterministic: ACEScg ``value`` (N, 3) at keys ``qpos`` (N, 3),
     ``face_id`` (N,), where ``valid`` (N,) is set. Of the groups that
     apply, the first ``max_updates`` in group order are written and the
-    rest wait for a later batch. Returns a new table; the old one is kept."""
+    rest wait for a later batch. Returns a new table; the old one is kept.
+
+    CPU tensors run :func:`hash_insert_plain`; any other launch the
+    kernels (:func:`_insert_kernels`)."""
+    if qpos.device.type == "cpu":
+        return hash_insert_plain(hash_, qpos, face_id, value, frame_index,
+                                 valid, max_updates)
+    return _insert_kernels(hash_, qpos, face_id, value, frame_index, valid,
+                           max_updates)
+
+
+def hash_insert_plain(hash_: SpatialHash, qpos: torch.Tensor,
+                      face_id: torch.Tensor, value: torch.Tensor,
+                      frame_index: int, valid=None,
+                      max_updates: int | None = None) -> SpatialHash:
+    """:func:`hash_insert` in torch ops on any device."""
     qpos = qpos.reshape(-1, 3)
     face_id = face_id.reshape(-1)
     value = value.reshape(-1, 3)
@@ -258,3 +302,289 @@ def hash_insert(hash_: SpatialHash, qpos: torch.Tensor, face_id: torch.Tensor,
     out[:ngroups] = table
     out.index_copy_(0, upd, new_rows)
     return SpatialHash(table=out[:ngroups])
+
+
+# ---------------------------------------------------------------------------
+# The working set
+
+
+def probe_working_set(hash_: SpatialHash, centers: torch.Tensor,
+                      valid_cells: torch.Tensor, cell_size: float,
+                      albedo: torch.Tensor | None = None,
+                      ws: torch.Tensor | None = None, lo: int = 0,
+                      hi: int | None = None) -> torch.Tensor:
+    """The hash frame's working set: one :func:`hash_get` per key of
+    (face, cell), at row ``face * cells + cell``, of the world-space leaf
+    centres ``centers`` (cells, 3), packed into dense-cache rows
+    (:func:`~dust_tpu_torch.ops.gi_cache.pack_working_set_rows`); a cell
+    that is not in ``valid_cells`` (cells,) reads count 0. Without ``ws``
+    every row, with the albedo words ``albedo`` (rows,) as its third word;
+    with ``ws``, the last working set's (rows, 3) table, a copy of it in
+    which the rows ``[lo, hi)`` are probed again and keep their albedo.
+
+    CPU tensors run :func:`probe_working_set_plain`; any other launch
+    ``spatial_hash_probe_kernel``."""
+    if centers.device.type == "cpu":
+        return probe_working_set_plain(hash_, centers, valid_cells,
+                                       cell_size, albedo, ws, lo, hi)
+    return _probe_kernel(hash_, centers, valid_cells, cell_size, albedo, ws,
+                         lo, hi)
+
+
+def probe_working_set_plain(hash_: SpatialHash, centers: torch.Tensor,
+                            valid_cells: torch.Tensor, cell_size: float,
+                            albedo: torch.Tensor | None = None,
+                            ws: torch.Tensor | None = None, lo: int = 0,
+                            hi: int | None = None) -> torch.Tensor:
+    """:func:`probe_working_set` in torch ops on any device."""
+    cells = centers.shape[0]
+    face6 = torch.arange(6, dtype=torch.int32,
+                         device=centers.device)[:, None].expand(6, cells)
+    qpos6, face6 = spatial_hash_key(centers.repeat(6, 1), face6.reshape(-1),
+                                    cell_size)
+    valid6 = valid_cells.repeat(6)
+    if ws is not None:
+        window = slice(lo, 6 * cells if hi is None else hi)
+        found, rad, cnt = hash_get(hash_, qpos6[window], face6[window])
+        cnt = torch.where(found & valid6[window], cnt, 0)
+        table = ws.clone()
+        table[window] = gilib.pack_working_set_rows(rad, cnt,
+                                                    table[window, 2:3])
+        return table
+    found, rad, cnt = hash_get(hash_, qpos6, face6)
+    cnt = torch.where(found & valid6, cnt, 0)
+    return gilib.pack_working_set_rows(rad, cnt, albedo[:, None])
+
+
+# ---------------------------------------------------------------------------
+# The kernels: build, bind, launch
+
+_vp, _ci, _ll, _cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
+
+
+class _LogLuv(ctypes.Structure):
+    _fields_ = [("acescg_to_xyz", _cf * 9), ("xyz_to_acescg", _cf * 9),
+                ("inv_409_6", _cf), ("ln2", _cf), ("inv_ln2", _cf),
+                ("u4", _cf), ("u6", _cf), ("u9", _cf), ("u16", _cf)]
+
+
+class _ProbeArgs(ctypes.Structure):
+    _fields_ = [("table", _vp), ("centers", _vp), ("valid_cells", _vp),
+                ("albedo", _vp), ("out", _vp), ("cells", _ll), ("lo", _ll),
+                ("hi", _ll), ("ngroups", _ll), ("inv_cell", _cf),
+                ("luv", _LogLuv)]
+
+
+class _InsertArgs(ctypes.Structure):
+    _fields_ = [(name, _vp) for name in (
+        "table", "out", "qpos", "face", "valid", "value", "gkey", "fp",
+        "s_gkey", "order", "tree_v", "tree_f", "block_fold", "block_count",
+        "block_before", "applied", "sums", "rank")] + [
+        ("n", _ll), ("ngroups", _ll), ("cap", _ll), ("frame_index", _ci),
+        ("luv", _LogLuv)]
+
+
+class _LogLuvArgs(ctypes.Structure):
+    _fields_ = [("words", _vp), ("rgb", _vp), ("out_words", _vp),
+                ("n", _ll), ("luv", _LogLuv)]
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+@functools.lru_cache(maxsize=None)
+def _logluv_constants() -> _LogLuv:
+    """packing.py's LogLuv constants, as its torch code applies them: the
+    division by ``_LN2`` is a multiply by its float32 reciprocal on the
+    card (a tensor divided by a Python number)."""
+    def mat(m):
+        return (_cf * 9)(*[_f32(m[i][j]) for i in range(3) for j in range(3)])
+
+    return _LogLuv(acescg_to_xyz=mat(colorlib.ACESCG_TO_XYZ),
+                   xyz_to_acescg=mat(colorlib.XYZ_TO_ACESCG),
+                   inv_409_6=pk._INV_409_6, ln2=pk._LN2,
+                   inv_ln2=_f32(1.0 / pk._LN2), u4=pk._U_SCALE[4],
+                   u6=pk._U_SCALE[6], u9=pk._U_SCALE[9],
+                   u16=pk._U_SCALE[16])
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile ``csrc/spatial_hash.cu`` (:func:`hdda.build_cuda`)."""
+    return hdda.build_cuda(_SOURCE, "spatial_hash", verbose)
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build_library()))
+        for name in ("spatial_hash_probe_launch",
+                     "spatial_hash_logluv_launch"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_vp, _vp]
+            fn.restype = _ci
+        lib.spatial_hash_insert_launch.argtypes = [_vp, _ci, _vp]
+        lib.spatial_hash_insert_launch.restype = _ci
+        _LIB = lib
+    return _LIB
+
+
+def _on_cuda(name, dev, n):
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if n >= 2 ** 31:
+        raise ValueError(f"{name}: {n} keys, more than a launch takes")
+
+
+def _launch(fn, args, dev, kernel, *extra):
+    """Call ``fn`` of the library on the current stream of ``dev``; count
+    a launch of ``kernel``."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(_library(), fn)(ctypes.addressof(args), *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
+
+
+def _table(hash_: SpatialHash, dev):
+    table = hash_.table
+    ngroups = table.shape[0]
+    hdda._check("table", table, torch.int32, (ngroups, 16), dev)
+    if ngroups >= 2 ** 31:
+        raise ValueError(f"table: {ngroups} groups, more than int32 holds")
+    return table, ngroups
+
+
+def _probe_kernel(hash_, centers, valid_cells, cell_size, albedo, ws, lo,
+                  hi):
+    """Launch ``spatial_hash_probe_kernel`` (contract of
+    :func:`probe_working_set`)."""
+    dev = centers.device
+    cells = centers.shape[0]
+    rows = 6 * cells
+    hi = rows if hi is None else hi
+    _on_cuda("spatial_hash_probe", dev, rows)
+    if not 0 <= lo <= hi <= rows:
+        raise ValueError(f"probe rows [{lo}, {hi}) outside [0, {rows})")
+    table, ngroups = _table(hash_, dev)
+    _check = hdda._check
+    _check("centers", centers, torch.float32, (cells, 3), dev)
+    _check("valid_cells", valid_cells, torch.bool, (cells,), dev)
+    if ws is None:
+        _check("albedo", albedo, torch.int32, (rows,), dev)
+        out = torch.empty((rows, 3), dtype=torch.int32, device=dev)
+    else:
+        _check("ws", ws, torch.int32, (rows, 3), dev)
+        out = ws.clone()
+    args = _ProbeArgs(
+        table=table.data_ptr(), centers=centers.data_ptr(),
+        valid_cells=valid_cells.data_ptr(),
+        albedo=None if ws is not None else albedo.data_ptr(),
+        out=out.data_ptr(), cells=cells, lo=lo, hi=hi, ngroups=ngroups,
+        inv_cell=_f32(1.0 / cell_size), luv=_logluv_constants())
+    _launch("spatial_hash_probe_launch", args, dev, "probe")
+    return out
+
+
+def _insert_kernels(hash_, qpos, face_id, value, frame_index, valid,
+                    max_updates):
+    """The insert's kernels (contract of :func:`hash_insert`): the keys,
+    the stable sort (torch), the three scan launches and the apply, into a
+    torch copy of the table."""
+    args, out = _insert_args(hash_, qpos, face_id, value, frame_index, valid,
+                             max_updates)
+    if args is not None:
+        _insert_run(args, qpos.device)
+    return SpatialHash(table=out)
+
+
+def _insert_args(hash_, qpos, face_id, value, frame_index, valid,
+                 max_updates):
+    """The checked launch arguments of the insert and the table's copy
+    they write, with their scratch allocated; (None, copy) without keys."""
+    qpos = qpos.reshape(-1, 3).contiguous()
+    face_id = face_id.reshape(-1).contiguous()
+    value = value.reshape(-1, 3).contiguous()
+    n = qpos.shape[0]
+    dev = qpos.device
+    _on_cuda("spatial_hash_insert", dev, n)
+    table, ngroups = _table(hash_, dev)
+    _check = hdda._check
+    _check("qpos", qpos, torch.int32, (n, 3), dev)
+    _check("face_id", face_id, torch.int32, (n,), dev)
+    _check("value", value, torch.float32, (n, 3), dev)
+    if valid is not None:
+        valid = valid.reshape(-1).contiguous()
+        _check("valid", valid, torch.bool, (n,), dev)
+    out = table.clone()
+    if n == 0:
+        return None, out
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    nfull = n // _SCAN_BLOCK
+    keep = dict(
+        qpos=qpos, face=face_id, value=value, valid=valid, gkey=empty(n),
+        fp=empty(n), tree_v=empty(max(2 * nfull, 1), 4, dtype=torch.float32),
+        tree_f=empty(max(2 * nfull, 1), dtype=torch.uint8),
+        block_fold=empty(max(nfull, 1), 4, dtype=torch.float32),
+        block_count=empty(-(-n // _SCAN_BLOCK)),
+        block_before=empty(-(-n // _SCAN_BLOCK)), applied=empty(1),
+        sums=empty(n, 4, dtype=torch.float32), rank=empty(n))
+    args = _InsertArgs(
+        table=table.data_ptr(), out=out.data_ptr(), n=n, ngroups=ngroups,
+        cap=-1 if max_updates is None or max_updates >= n else max_updates,
+        frame_index=(int(frame_index) + 2 ** 31) % 2 ** 32 - 2 ** 31,
+        luv=_logluv_constants(),
+        **{k: None if t is None else t.data_ptr() for k, t in keep.items()})
+    args.keep = keep  # alive as long as the arguments point into it
+    return args, out
+
+
+def _insert_run(args, dev):
+    """The insert's launches on ``args`` (:func:`_insert_args`): the keys,
+    the sort by group, the scans and the apply."""
+    _insert_step(args, dev, 0)
+    s_gkey, order = torch.sort(args.keep["gkey"], stable=True)
+    args.keep.update(s_gkey=s_gkey, order=order)
+    args.s_gkey, args.order = s_gkey.data_ptr(), order.data_ptr()
+    for step in range(1, 5):
+        _insert_step(args, dev, step)
+
+
+_INSERT_STEPS = ("keys", "scan_up", "scan_blocks", "scan", "apply")
+
+
+def _insert_step(args, dev, step: int):
+    """Launch the insert's kernel ``step`` (0-4: keys, scan_up,
+    scan_blocks, scan, apply) with the arguments ``args``."""
+    _launch("spatial_hash_insert_launch", args, dev, _INSERT_STEPS[step],
+            step)
+
+
+def logluv(x: torch.Tensor) -> torch.Tensor:
+    """``spatial_hash_logluv_kernel`` on a CUDA tensor: int32 LogLuv words
+    (N,) decoded to ACEScg (N, 3) float32, or (N, 3) float32 encoded to
+    int32 words (N,); the kernels' own codec, held to
+    :func:`~dust_tpu_torch.ops.packing.decode_logluv` and
+    :func:`~dust_tpu_torch.ops.packing.encode_logluv` by the tests."""
+    x = x.contiguous()
+    dev = x.device
+    n = x.shape[0]
+    _on_cuda("spatial_hash_logluv", dev, n)
+    if x.dtype == torch.int32:
+        hdda._check("words", x, torch.int32, (n,), dev)
+        out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        args = _LogLuvArgs(words=x.data_ptr(), rgb=out.data_ptr(),
+                           out_words=None, n=n, luv=_logluv_constants())
+    else:
+        hdda._check("rgb", x, torch.float32, (n, 3), dev)
+        out = torch.empty(n, dtype=torch.int32, device=dev)
+        args = _LogLuvArgs(words=None, rgb=x.data_ptr(),
+                           out_words=out.data_ptr(), n=n,
+                           luv=_logluv_constants())
+    _launch("spatial_hash_logluv_launch", args, dev, "logluv")
+    return out

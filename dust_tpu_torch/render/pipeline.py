@@ -42,7 +42,9 @@ tensor's value.
 
 Each step runs in its span (``dust.primary``, ``dust.sun``,
 ``dust.gather``, ``dust.refresh``, ``dust.post``; a step the frame does
-not run opens none), inside ``dust.frame``: ranges of the running
+not run opens none), inside ``dust.frame``; the hash frame's working set
+opens ``dust.hash.probe`` inside ``dust.gather`` and its insert
+``dust.hash.insert`` inside ``dust.refresh``: ranges of the running
 ``torch.profiler``, free when none runs
 (:func:`~dust_tpu_torch.utils.profiling.trace_annotation`).
 """
@@ -255,33 +257,24 @@ def _working_set(scene, state: FrameState, settings: RenderSettings,
                  frame_index: int):
     """The hash frame's GI reads: one ``hash_get`` per (instance, leaf,
     face) cell packed into dense-cache rows, so that every ray-side read
-    is the dense gather. With ``ws_refresh_slices`` N > 1 only the
+    is the dense gather (:func:`~dust_tpu_torch.ops.spatial_hash.
+    probe_working_set`). With ``ws_refresh_slices`` N > 1 only the
     frame's rotating 1/N slice is probed and the rest keeps its last
     probe. Returns (the cache to read, the new ``gi_ws``)."""
     centers_w, vleaf = _cell_enumeration(scene)
-    cells = centers_w.shape[0]
-    face6 = torch.arange(6, dtype=torch.int32,
-                         device=scene.device)[:, None].expand(6, cells)
-    qpos6, face6 = sh.spatial_hash_key(centers_w.repeat(6, 1),
-                                       face6.reshape(-1),
-                                       settings.spatial_hash.cell_size)
-    valid6 = vleaf.repeat(6)
+    cell_size = settings.spatial_hash.cell_size
     nslices = settings.spatial_hash.ws_refresh_slices
     if nslices > 1 and state.gi_ws is not None:
-        rows_total = qpos6.shape[0]
+        rows_total = 6 * centers_w.shape[0]
         size = -(-rows_total // nslices)
         start = min((frame_index % nslices) * size, rows_total - size)
-        window = slice(start, start + size)
-        found, rad, cnt = sh.hash_get(state.gi, qpos6[window], face6[window])
-        cnt = torch.where(found & valid6[window], cnt, 0)
-        table = state.gi_ws.table.clone()
-        table[window] = gilib.pack_working_set_rows(rad, cnt,
-                                                    table[window, 2:3])
-        ws = gilib.DenseGICache(table=table)
+        ws = gilib.DenseGICache(table=sh.probe_working_set(
+            state.gi, centers_w, vleaf, cell_size, ws=state.gi_ws.table,
+            lo=start, hi=start + size))
         return ws, ws
-    found, rad, cnt = sh.hash_get(state.gi, qpos6, face6)
-    cnt = torch.where(found & valid6, cnt, 0)
-    return gilib.pack_working_set(rad, cnt, scene), state.gi_ws
+    return gilib.DenseGICache(table=sh.probe_working_set(
+        state.gi, centers_w, vleaf, cell_size,
+        albedo=gilib.albedo_words(scene))), state.gi_ws
 
 
 def _gather_trace(mesh, res: traverse.TraceResult,
@@ -451,8 +444,9 @@ def _render_frame(scene, state, cam, sky_state, bn_cosine, bn_scalar,
                     gi_reads = gilib.DenseGICache(table=parallel.gather_rows(
                         mesh, state.gi.table, gilib.dense_rows(scene)))
             else:
-                gi_reads, new_gi_ws = _working_set(scene, state, settings,
-                                                   frame_index)
+                with trace_annotation("dust.hash.probe"):
+                    gi_reads, new_gi_ws = _working_set(scene, state, settings,
+                                                       frame_index)
             face = shade.entry_face(scene, fg, hit_loc, gi_dir)
             _found, cached, cnt, alb_u32 = gilib.dense_get(
                 gi_reads, gilib.dense_index(scene, fg.inst, fg.row, face),
@@ -609,11 +603,13 @@ def _render_frame(scene, state, cam, sky_state, bn_cosine, bn_scalar,
                 new_gi = gilib.dense_update_slice(state.gi, slice_start,
                                                   insert_val, insert_ok)
             else:
-                new_gi = sh.hash_insert(
-                    state.gi,
-                    *sh.spatial_hash_key(surfel_pos, surfel_dir, cell_size),
-                    insert_val, frame_index, valid=insert_ok,
-                    max_updates=settings.spatial_hash.insert_cap or None)
+                with trace_annotation("dust.hash.insert"):
+                    new_gi = sh.hash_insert(
+                        state.gi,
+                        *sh.spatial_hash_key(surfel_pos, surfel_dir,
+                                             cell_size),
+                        insert_val, frame_index, valid=insert_ok,
+                        max_updates=settings.spatial_hash.insert_cap or None)
                 # A hit cell not in the cache requeues into the surfel's own
                 # slot.
                 s_noise = noiselib.bn_fetch_pool(bn_scalar, layer, (114, 40),
