@@ -165,7 +165,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    each kernel a frame, and one frame through the kernels and through the
    plain versions from one state (output, aux and new state, the table
    included, equal); each kernel's time (CUDA-graph replay) beside the
-   floor of benchmark/hashwork.py.
+   floor of benchmark/hashwork.py;
+27. the denoiser's kernels (dust_tpu_torch/csrc/denoise.cu:
+   denoise_temporal_kernel, denoise_atrous_kernel) held against
+   denoise_plain on the card, every bit of the denoised colour, the hit
+   distance and the packed history, over two steps (a still camera from
+   an empty history, then a moved one from that history): the 4K frame's
+   half-resolution step (1920x1080, 3 passes), the 1080p frames'
+   (960x540, 3 passes), the full-resolution 1080p step (4 passes), a
+   256x128 step whose reprojected pixel centres land exactly on the
+   image's edges or just past them, and the 960x540 step on 4 ranks'
+   rows (threads sharing an all-gather) against the plain version's ranks
+   and the whole image; 4 frames each at 1920x1080 and 3840x2160 with one
+   temporal and three à-trous launches a frame, and one frame at each
+   through the kernels and through the plain version from one state
+   (output, aux and new state equal); at both half-resolution shapes each
+   kernel's time (CUDA-graph replay) beside its floor (the bytes it
+   counts a pixel at the memory rate) and the plain step's host-issued
+   time; and phase 20's denoise figure again (profile_stages' post
+   stage).
 
 Every config is built and rendered through the bench module
 (dust_tpu_torch/bench.py). Before the result it prints each scene-kernel
@@ -259,6 +277,15 @@ GBUFFER_READ_BYTES = 16 + 24 + 32
 HASH_CAPACITY = 1 << 25
 HASH_INSERT_CAP = 1 << 17
 HASH_KERNELS = ("probe", "keys", "scan_up", "scan_blocks", "scan", "apply")
+# The denoiser's kernels (csrc/denoise.cu, phase 27): the bytes each
+# counts a pixel (the source's header: the temporal step's inputs, its
+# share of the history and its outputs; a pass's own pixel read and its
+# colour written; the last pass's radiance read and output written in
+# its place), and the launches of a frame's half-resolution step.
+DENOISE_TEMPORAL_BYTES = 124
+DENOISE_PASS_BYTES = 40 + 16
+DENOISE_LAST_PASS_BYTES = 40 + 12 + 12
+DENOISE_LAUNCHES = {"denoise_temporal": 1, "denoise_atrous": 3}
 
 
 def _setup(device, width, height, config="gi", capacity=None, pool=None,
@@ -2208,6 +2235,313 @@ def _hash_phase_26(dev, card):
     return out
 
 
+def _denoise_inputs(height, width, dev, seed=0, edge=False):
+    """Two denoiser steps' inputs at ``height`` x ``width`` (dicts ``a`` and
+    ``b`` of :func:`denoise`'s keywords): the orbit camera's G-buffer of
+    a rippled surface 12-28 units away (a tenth of the pixels missed, a
+    disc moving), then the same seen from a camera moved 0.85 units, so
+    that the second step reprojects under motion and some pixels leave
+    the image. With ``edge`` (width and height powers of two) the
+    previous view-projection is affine and the second step moves each
+    pixel by 0, +-1, +0.5 or -0.25 pixels: pixel centres land on the
+    image's edge rows and columns exactly, or just outside."""
+    import math
+
+    import torch
+    from dust_tpu_torch.ops import camera as cameralib
+
+    gen = torch.Generator().manual_seed(seed)
+    H, W = height, width
+    ys = torch.arange(H, dtype=torch.float32)[:, None]
+    xs = torch.arange(W, dtype=torch.float32)[None, :]
+    valid = (torch.rand((H, W), generator=gen) > 0.1)
+    valid[H // 3:H // 3 + max(H // 16, 1), W // 5:W // 4] = False
+    disc = ((ys - H / 2) ** 2 + (xs - W / 2) ** 2) < (min(H, W) / 5) ** 2
+    radiance = torch.exp(torch.randn((H, W, 3), generator=gen)) * 0.3
+    hitdist = torch.exp(torch.randn((H, W), generator=gen) * 1.5) * 4.0
+    hitdist = torch.where(torch.rand((H, W), generator=gen) < 0.05, 1e5,
+                          hitdist)
+    steps = {}
+    for k, name in enumerate("ab"):
+        if edge:
+            vp = torch.tensor([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 0, 0],
+                               [0, 0, 0, 1.0]])
+            pos = torch.stack(torch.broadcast_tensors(
+                (xs + 0.5) * (2.0 / W) - 1.0, 1.0 - (ys + 0.5) * (2.0 / H),
+                torch.rand((H, W), generator=gen)), dim=-1)
+            depth = 0.9 + 0.2 * torch.rand((H, W), generator=gen)
+            shift = torch.tensor([0.0, 0.0, 0.0, 1.0, -1.0, 0.5, -0.25])
+            pick = torch.randint(0, 7, (2, H, W), generator=gen)
+            motion = torch.stack(
+                [shift[pick[0]] * (2.0 / W), -shift[pick[1]] * (2.0 / H),
+                 torch.zeros((H, W))], dim=-1) * k
+            dirs = torch.tensor([0.0, 0.0, -1.0]).expand(H, W, 3)
+        else:
+            eye = (26.0 + 0.6 * k, 14.0, 32.0 - 0.6 * k)
+            cam = cameralib.camera_settings(
+                cameralib.look_at(eye, (4.0, -4.0, 0.0)), 0.9, 0.1, 1e4, W,
+                H, "cpu")
+            if k == 0:
+                vp = cam.view_proj
+            dirs = cameralib.camera_ray_dirs(cam, W, H)
+            depth = (20.0 + 8.0 * torch.sin(xs / 29.0) * torch.cos(ys / 17.0)
+                     + 0.5 * torch.rand((H, W), generator=gen))
+            pos = torch.tensor(eye) + dirs * depth[..., None]
+            motion = torch.where(
+                disc[..., None], 0.05 * torch.randn((H, W, 3), generator=gen),
+                0.0)
+        nrm = -dirs / dirs.norm(dim=-1, keepdim=True) \
+            + 0.4 * torch.randn((H, W, 3), generator=gen)
+        nrm = nrm / nrm.norm(dim=-1, keepdim=True)
+        ok = valid[..., None]
+        steps[name] = dict(
+            radiance=radiance * (1.0 + 0.1 * k), hitdist=hitdist,
+            depth=torch.where(valid, depth, math.inf),
+            normal=torch.where(ok, nrm, torch.tensor([0.0, 0.0, 1.0])),
+            world_pos=torch.where(ok, pos, 0.0),
+            motion=torch.where(ok, motion, 0.0), prev_view_proj=vp)
+    return {name: {k: v.to(dev).contiguous() for k, v in step.items()}
+            for name, step in steps.items()}
+
+
+def _denoise_held(label, kernel, plain):
+    """:func:`_held_equal` of two denoiser steps' (denoised, hitdist,
+    new state)."""
+    def fields(step):
+        return dict(denoised=step[0], hitdist=step[1],
+                    history=step[2].history)
+
+    _held_equal(label, fields(kernel), fields(plain))
+
+
+def _denoise_case(label, dev, height, width, passes, seed=0, edge=False,
+                  card="", timed=False):
+    """Phase 27 at one shape: two steps (a still camera from an empty
+    history, then a moved one from the first step's history), each
+    through the kernels and through the plain version, held every bit
+    (:func:`_denoise_held`), with ``passes`` à-trous passes; each step
+    launches the temporal kernel once and the à-trous kernel ``passes``
+    times (on the card; the CPU runs the plain version and launches
+    nothing). With ``timed``, each kernel's device time beside its floor and
+    the plain step's time. Returns a dict of numbers."""
+    import dataclasses
+
+    import torch
+    from dust_tpu_torch.config import DenoiserSettings
+    from dust_tpu_torch.ops import denoise as denoiselib
+
+    settings = dataclasses.replace(DenoiserSettings(),
+                                   atrous_iterations=passes)
+    steps = _denoise_inputs(height, width, dev, seed, edge)
+    state = denoiselib.make_denoiser_state(height, width, dev)
+    out = dict(shape=[height, width], passes=passes)
+    for name in "ab":
+        before = dict(denoiselib.LAUNCHES)
+        k = denoiselib.denoise(state, settings=settings, **steps[name])
+        on = torch.device(dev).type == "cuda"  # the CPU launches nothing
+        expect = {"denoise_temporal": before["denoise_temporal"] + on,
+                  "denoise_atrous": before["denoise_atrous"] + on * passes}
+        if denoiselib.LAUNCHES != expect:
+            raise SystemExit(f"{label}: launches {denoiselib.LAUNCHES}, "
+                             f"expected {expect}")
+        p = denoiselib.denoise_plain(state, settings=settings, **steps[name])
+        _denoise_held(f"{label} step {name}", k, p)
+        state = p[2]
+        kept = float((state.history_len > 1.0).float().mean())
+        out[f"history_kept_{name}"] = kept
+    print(f"{label}: {height}x{width}, {passes} passes, two steps equal to "
+          f"the plain version in every bit; history kept on "
+          f"{100.0 * out['history_kept_b']:.1f}% of the pixels after the "
+          f"moved step")
+    if not 0.05 < out["history_kept_b"] < 0.98:
+        raise SystemExit(f"{label}: want the moved step to keep some "
+                         f"history and lose some, got {out}")
+    if not timed:
+        return out
+    b = steps["b"]
+    plain_ms = _ms(lambda: denoiselib.denoise_plain(
+        state, settings=settings, **b), 3)
+    t_in = (state.history, b["radiance"], b["hitdist"], b["depth"],
+            b["normal"], b["world_pos"], b["motion"], b["prev_view_proj"],
+            settings, 0, 0)
+    _h, filt, _hd, geom, terms = denoiselib._temporal(*t_in)
+    times = {"denoise_temporal": _kernel_ms(
+        lambda: denoiselib._temporal(*t_in))}
+    px = height * width
+    floor = {"denoise_temporal": DENOISE_TEMPORAL_BYTES * px}
+    for it in range(passes):
+        last = it == passes - 1
+        name = f"denoise_atrous step {1 << it}"
+        times[name] = _kernel_ms(lambda: denoiselib._atrous(
+            filt, geom, terms, b["radiance"], settings, 0, 0, 1 << it, last))
+        floor[name] = (DENOISE_LAST_PASS_BYTES if last
+                       else DENOISE_PASS_BYTES) * px
+    floor = {k: 1e3 * v / MEM_BYTES_PER_S for k, v in floor.items()}
+    step_ms = _kernel_ms(lambda: denoiselib.denoise(
+        state, settings=settings, **b))
+    for name, ms in times.items():
+        print(f"{label} {name}: {ms:.4f} ms (CUDA-graph replay), floor "
+              f"{floor[name]:.4f} ms, {100.0 * floor[name] / ms:.1f}% of it "
+              f"[{card}]")
+    print(f"{label}: the step {step_ms:.4f} ms through the kernels "
+          f"(CUDA-graph replay), floor {sum(floor.values()):.4f} ms; plain "
+          f"{plain_ms:.3f} ms host-issued [{card}]")
+    out.update(ms=times, floor_ms=floor, step_ms=step_ms, plain_ms=plain_ms)
+    return out
+
+
+def _in_ranks(ranks, fn):
+    """``fn(rank, gather)`` on ``ranks`` threads, each with an all-gather
+    over the threads (``gather(x)``: every rank's ``x`` in rank order);
+    the results in rank order."""
+    import threading
+
+    import torch
+
+    slots = [None] * ranks
+    results = [None] * ranks
+    errors = []
+    barrier = threading.Barrier(ranks)
+
+    def run(r):
+        def gather(x):
+            slots[r] = x
+            barrier.wait()
+            whole = torch.cat(slots)
+            barrier.wait()
+            return whole
+
+        try:
+            results[r] = fn(r, gather)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(ranks)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+def _denoise_sharded(denoise, state, inputs, settings, ranks):
+    """One denoiser step as ``ranks`` ranks of the sharded frame compute
+    it (:func:`_in_ranks`): each its rows of the image (the last rank
+    fewer), with ``rows=(lo, hi, gather)``; the ranks' results joined."""
+    import torch
+    from dust_tpu_torch.ops import denoise as denoiselib
+
+    H = inputs["depth"].shape[0]
+    c = -(-H // ranks)
+
+    def rank(r, gather):
+        lo, hi = min(H, r * c), min(H, (r + 1) * c)
+        mine = {k: (v if k == "prev_view_proj" else
+                    v[max(lo - 1, 0):min(hi + 1, H)] if k == "radiance"
+                    else v[lo:hi]) for k, v in inputs.items()}
+        part = denoiselib.DenoiserState(history=state.history[lo:hi])
+        return denoise(part, settings=settings, rows=(lo, hi, gather),
+                       **mine)
+
+    parts = _in_ranks(ranks, rank)
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]),
+            denoiselib.DenoiserState(history=torch.cat(
+                [p[2].history for p in parts])))
+
+
+def _denoise_sharded_case(label, dev, height, width, passes, ranks=4,
+                          seed=0):
+    """Phase 27's sharded rows: the moved step of :func:`_denoise_inputs`
+    on ``ranks`` ranks through the kernels, equal in every bit to the
+    plain version's sharded step and, on the card, to the whole image's
+    (on the CPU, close to it)."""
+    import dataclasses
+
+    import torch
+
+    from dust_tpu_torch.config import DenoiserSettings
+    from dust_tpu_torch.ops import denoise as denoiselib
+
+    settings = dataclasses.replace(DenoiserSettings(),
+                                   atrous_iterations=passes)
+    steps = _denoise_inputs(height, width, dev, seed)
+    state = denoiselib.denoise_plain(
+        denoiselib.make_denoiser_state(height, width, dev),
+        settings=settings, **steps["a"])[2]
+    whole = denoiselib.denoise_plain(state, settings=settings, **steps["b"])
+    k = _denoise_sharded(denoiselib.denoise, state, steps["b"], settings,
+                         ranks)
+    p = _denoise_sharded(denoiselib.denoise_plain, state, steps["b"],
+                         settings, ranks)
+    _denoise_held(label, k, p)
+    if torch.device(dev).type == "cuda":
+        _denoise_held(f"{label} (whole)", k, whole)
+    else:
+        # The CPU's vectorised exp2 and log2 round a lane of the vector
+        # body and one of the scalar tail apart, so rows cut elsewhere
+        # may move a last bit.
+        for a, b in zip(k[:2], whole[:2]):
+            if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
+                raise SystemExit(f"{label}: the sharded rows differ from "
+                                 "the whole image's")
+        same = (k[2].history == whole[2].history).all(dim=-1)
+        if float(same.float().mean()) < 0.999:
+            raise SystemExit(f"{label}: the sharded history differs from "
+                             "the whole image's")
+    print(f"{label}: {height}x{width} on {ranks} ranks, {passes} passes: "
+          f"the rows through {denoiselib.denoise.__name__} equal the plain "
+          f"version's, sharded and whole")
+
+
+def _denoise_frame_equal(label, ctx, frame=3):
+    """:func:`_frame_equal` of the denoiser's entry point."""
+    from dust_tpu_torch.ops import denoise as denoiselib
+
+    return _frame_equal(label, "denoise", ctx, frame, [
+        (denoiselib, "denoise", denoiselib.denoise_plain)])
+
+
+def _denoise_phase_27(dev, card):
+    """27. The denoiser's kernels held and timed (module docstring); a dict
+    of the phase's numbers."""
+    from dust_tpu_torch.ops import denoise as denoiselib
+    from dust_tpu_torch.tools import profile_stages
+
+    out = {}
+    for label, h, w, passes, timed in (
+            ("denoise 4K half-res", HEIGHT_4K // 2, WIDTH_4K // 2, 3, True),
+            ("denoise 1080p half-res", HEIGHT // 2, WIDTH // 2, 3, True),
+            ("denoise 1080p full-res", HEIGHT, WIDTH, 4, False)):
+        out[label] = _denoise_case(label, dev, h, w, passes, card=card,
+                                   timed=timed)
+    out["edge"] = _denoise_case("denoise edges", dev, 128, 256, 3, seed=1,
+                                edge=True)
+    _denoise_sharded_case("denoise sharded", dev, HEIGHT // 2, WIDTH // 2, 3)
+    for config, width, height in (("gi", WIDTH, HEIGHT),
+                                  ("gi-4k", WIDTH_4K, HEIGHT_4K)):
+        ctx = _setup(dev, width, height, config)
+        for k in denoiselib.LAUNCHES:
+            denoiselib.LAUNCHES[k] = 0
+        _frames(ctx, FRAMES)
+        want = {k: FRAMES * v for k, v in DENOISE_LAUNCHES.items()}
+        if denoiselib.LAUNCHES != want:
+            raise SystemExit(f"denoise {config}: launches "
+                             f"{denoiselib.LAUNCHES} over {FRAMES} frames, "
+                             f"expected {want}")
+        _denoise_frame_equal(f"denoise {width}x{height}", ctx, FRAMES)
+        del ctx
+    # Phase 20's denoise figure again: profile_stages' post stage.
+    stages = profile_stages.profile(
+        WIDTH, HEIGHT, HASH_POOL, 1 << 22, 5, dev, stages=("post",),
+        log=lambda line: print("profile_stages " + line))
+    out["profile_stages_denoise"] = stages.get("denoise")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2223,7 +2557,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, here)
     from dust_tpu_torch import bench, native
-    from dust_tpu_torch.ops import gbuffer, hdda, spatial_hash
+    from dust_tpu_torch.ops import denoise, gbuffer, hdda, spatial_hash
     from dust_tpu_torch.tools.rmse import rmse as rmse_np
 
     card = bench.card_name()
@@ -2240,6 +2574,8 @@ def main() -> int:
             gbuffer.LAUNCHES[k] = 0
         for k in spatial_hash.LAUNCHES:
             spatial_hash.LAUNCHES[k] = 0
+        for k in denoise.LAUNCHES:
+            denoise.LAUNCHES[k] = 0
 
     def rmse(a, b):
         return rmse_np(a.float().cpu().numpy(), b.float().cpu().numpy())
@@ -2253,6 +2589,9 @@ def main() -> int:
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     lib = spatial_hash.build_library(verbose=True)
+    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lib = denoise.build_library(verbose=True)
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     lib = native.build_library()
@@ -2459,6 +2798,23 @@ def main() -> int:
                                           else "insert"],
             bound_by="bytes", library_ms=None))
 
+    # ---- 27. the denoiser's kernels ----------------------------------------
+    denoise_held = _denoise_phase_27(dev, card)
+    for name in DENOISE_LAUNCHES:
+        by_shape = {}
+        for shape in ("4K", "1080p"):
+            h = denoise_held[f"denoise {shape} half-res"]
+            ks = [k for k in h["ms"] if k.startswith(name)]
+            by_shape[shape] = dict(
+                ms=sum(h["ms"][k] for k in ks),
+                bound_ms=sum(h["floor_ms"][k] for k in ks),
+                plain_ms=h["plain_ms"], bound_by="bytes")
+        kernels.append(dict(
+            name=f"{name}_kernel", route="cuda",
+            source="dust_tpu_torch/csrc/denoise.cu", replaces=None,
+            launches=FRAMES * DENOISE_LAUNCHES[name], max_abs_err=0.0,
+            **by_shape["1080p"], library_ms=None, gi_4k=by_shape["4K"]))
+
     for k in kernels:
         if k["name"].startswith("hdda_scene<"):
             mode = k["name"][len("hdda_scene<"):-1]
@@ -2488,7 +2844,8 @@ def main() -> int:
     print(json.dumps({"eager_backend": eager, "gates": gates,
                       "edits": edit_times, "flythrough_sharded": sharded,
                       "tools": tools, "native": native_build,
-                      "gbuffer": gbuffer_held, "spatial_hash": hash_held}))
+                      "gbuffer": gbuffer_held, "spatial_hash": hash_held,
+                      "denoise": denoise_held}))
     for mode in hdda.MODES:
         h = stress_held[mode]
         print(f"stress hdda_scene<{mode}>: {h['ms']:.3f} ms per launch at "

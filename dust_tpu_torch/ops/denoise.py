@@ -1,6 +1,14 @@
 """Real-time GI denoiser: temporal accumulation + à-trous (port of
 :mod:`dust_tpu.ops.denoise`, the half-resolution path of the frame).
 
+:func:`denoise` runs :func:`denoise_plain`, the step as PyTorch ops, on
+CPU tensors, and on CUDA tensors the two kernels of ``csrc/denoise.cu``:
+``denoise_temporal_kernel`` (everything before the à-trous loop, one
+launch a step) and ``denoise_atrous_kernel`` (one launch a pass), equal
+to the plain version bit for bit. The library is built at first use
+with the HDDA kernel's flags (:func:`dust_tpu_torch.ops.hdda.build_cuda`:
+``hdda.NVCC_FLAGS``, with ``-fmad=false``).
+
 The history is kept exactly as the reference keeps it, one (H, W, 3)
 array of 32-bit words per pixel (here int32 tensors holding the bits),
 because its quantisation changes the numbers:
@@ -13,16 +21,21 @@ because its quantisation changes the numbers:
 
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from dust_tpu_torch.config import DenoiserSettings
+from dust_tpu_torch.ops import hdda
 from dust_tpu_torch.ops import packing as pk
+from dust_tpu_torch.ops.gbuffer import _f32_recip
 from dust_tpu_torch.ops.fp import as_i32, as_u32, bits_f16, f16_bits
 
 __all__ = ["DenoiserState", "make_denoiser_state", "denoise",
-           "downsample_inputs", "upsample_bilateral"]
+           "denoise_plain", "downsample_inputs", "upsample_bilateral",
+           "build_library", "LAUNCHES"]
 
 _C = 3
 _HD_MAX = 60000.0
@@ -249,19 +262,12 @@ def _powi(x, n: int):
     return result
 
 
-def denoise(state: DenoiserState, radiance, hitdist, depth, normal,
-            world_pos, motion, prev_view_proj, settings: DenoiserSettings,
-            rows=None):
-    """One denoiser step. Returns (denoised_rgb, hitdist, new_state).
-
-    ``rows``: the sharded frame's ``(lo, hi, gather)``: the step computes
-    the image rows [lo, hi) alone. ``state`` then holds those rows of the
-    history, ``radiance`` the rows [max(lo - 1, 0), min(hi + 1, H)) (the
-    3×3 moments read one row around), every other input the rows [lo,
-    hi), and ``gather(x)`` returns the whole image from every rank's rows
-    ``x``; so do the results. The history fetch reads any row under
-    camera motion and the à-trous step 2^k rows 2^k away: each reads a
-    gathered image."""
+def denoise_plain(state: DenoiserState, radiance, hitdist, depth, normal,
+                  world_pos, motion, prev_view_proj,
+                  settings: DenoiserSettings, rows=None):
+    """One denoiser step as PyTorch ops: :func:`denoise`'s plain version,
+    which it runs on CPU tensors and which its kernels repeat bit for bit
+    on the card."""
     if rows is None:
         lo, hi, gather = 0, depth.shape[0], None
         history = state.history
@@ -382,3 +388,214 @@ def denoise(state: DenoiserState, radiance, hitdist, depth, normal,
                     normal.new_tensor([0.0, 0.0, 1.0])),
     )
     return out, acc_hd, DenoiserState(history=new_hist)
+
+
+def denoise(state: DenoiserState, radiance, hitdist, depth, normal,
+            world_pos, motion, prev_view_proj, settings: DenoiserSettings,
+            rows=None):
+    """One denoiser step. Returns (denoised_rgb, hitdist, new_state).
+
+    ``rows``: the sharded frame's ``(lo, hi, gather)``: the step computes
+    the image rows [lo, hi) alone. ``state`` then holds those rows of the
+    history, ``radiance`` the rows [max(lo - 1, 0), min(hi + 1, H)) (the
+    3×3 moments read one row around), every other input the rows [lo,
+    hi), and ``gather(x)`` returns the whole image from every rank's rows
+    ``x``; so do the results. The history fetch reads any row under
+    camera motion and the à-trous step 2^k rows 2^k away: each reads a
+    gathered image.
+
+    CPU tensors take :func:`denoise_plain`; any other device the kernels
+    (:func:`_denoise_kernels`), which raise off CUDA."""
+    if depth.device.type == "cpu":
+        return denoise_plain(state, radiance, hitdist, depth, normal,
+                             world_pos, motion, prev_view_proj, settings,
+                             rows)
+    return _denoise_kernels(state, radiance, hitdist, depth, normal,
+                            world_pos, motion, prev_view_proj, settings, rows)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels: build, bind, launch
+# ---------------------------------------------------------------------------
+
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "denoise.cu"
+_LIB = None
+
+# Launches of each kernel since the last reset (the plain version counts
+# nothing).
+LAUNCHES = {"denoise_temporal": 0, "denoise_atrous": 0}
+
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class _TemporalArgs(ctypes.Structure):
+    _fields_ = [(name, _vp) for name in (
+        "history", "radiance", "hitdist", "depth", "normal", "world_pos",
+        "motion", "view_proj", "new_history", "filt", "acc_hd", "geom",
+        "terms")] + [(name, _ci) for name in (
+            "lo", "rows", "width", "height", "rad_lo", "rad_rows")] + [
+        (name, _cf) for name in (
+            "clamp_sigma", "max_len", "fast_max_len", "antilag_sigma",
+            "antilag_relative", "hitdist_blur_scale", "luminance_sigma",
+            "inv_9", "inv_255", "w_hi", "h_hi")]
+
+
+class _AtrousArgs(ctypes.Structure):
+    _fields_ = [(name, _vp) for name in (
+        "filt_in", "geom", "terms", "radiance", "filt_out", "out")] + [
+        (name, _ci) for name in (
+            "lo", "rows", "width", "height", "rad_lo", "step",
+            "normal_power")] + [("depth_scale", _cf)]
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile ``csrc/denoise.cu`` (:func:`hdda.build_cuda`)."""
+    return hdda.build_cuda(_SOURCE, "denoise", verbose)
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build_library()))
+        for name in ("denoise_temporal_launch", "denoise_atrous_launch"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_vp, _vp]
+            fn.restype = _ci
+        _LIB = lib
+    return _LIB
+
+
+def _launch(name, args, dev):
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, f"{name}_launch")(ctypes.addressof(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _input(name, t, shape, dev):
+    """``t`` checked (float32, ``shape``, on ``dev``), contiguous."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != dev:
+        raise ValueError(f"{name}: on {t.device}, depth on {dev}")
+    return t.contiguous()
+
+
+def _denoise_kernels(state, radiance, hitdist, depth, normal, world_pos,
+                     motion, prev_view_proj, settings, rows):
+    """:func:`denoise` on the card: :func:`_temporal` once, then
+    :func:`_atrous` once a pass; the sharded frame's gathers (the history,
+    then each pass's colour; the depth and normal once) between the
+    launches."""
+    dev = depth.device
+    if depth.dim() != 2:
+        raise ValueError(f"depth: expected (H, W), got {tuple(depth.shape)}")
+    m, width = depth.shape
+    if rows is None:
+        lo, hi, gather = 0, m, None
+        history = state.history
+    else:
+        lo, hi, gather = rows
+        history = gather(state.history)
+    height = history.shape[0]
+    rad_lo, rad_hi = max(lo - 1, 0), min(hi + 1, height)
+    if hi - lo != m or not 0 <= lo <= hi <= height:
+        raise ValueError(f"denoise: rows [{lo}, {hi}) of {height} for "
+                         f"{m} rows of inputs")
+    if height < 2 or width < 2:
+        raise ValueError(f"denoise: a {height}x{width} image (the history "
+                         "fetch wants two rows and two columns)")
+    n_sigma = float(settings.normal_sigma)
+    if not n_sigma.is_integer() or n_sigma < 1:
+        raise ValueError(f"denoise: normal_sigma {n_sigma} (the kernel "
+                         "takes a positive integer power)")
+    if history.dtype != torch.int32:
+        raise TypeError(f"history: expected torch.int32, got "
+                        f"{history.dtype}")
+    if tuple(history.shape) != (height, width, 3) or history.device != dev:
+        raise ValueError(f"history: expected ({height}, {width}, 3) on "
+                         f"{dev}, got {tuple(history.shape)} on "
+                         f"{history.device}")
+    radiance = _input("radiance", radiance, (rad_hi - rad_lo, width, 3), dev)
+    inputs = [_input(name, t, shape, dev) for name, t, shape in (
+        ("hitdist", hitdist, (m, width)), ("depth", depth, (m, width)),
+        ("normal", normal, (m, width, 3)),
+        ("world_pos", world_pos, (m, width, 3)),
+        ("motion", motion, (m, width, 3)),
+        ("prev_view_proj", prev_view_proj, (4, 4)))]
+    if dev.type != "cuda":
+        raise ValueError(f"denoise: unsupported device {dev}")
+    new_history, filt, acc_hd, geom, terms = _temporal(
+        history.contiguous(), radiance, *inputs, settings, lo, rad_lo)
+    passes = settings.atrous_iterations
+    if gather is not None and passes:
+        geom = gather(geom).contiguous()
+    for it in range(passes):
+        filt_in = filt if gather is None else gather(filt).contiguous()
+        filt = _atrous(filt_in, geom, terms, radiance, settings, lo, rad_lo,
+                       1 << it, it == passes - 1)
+    # No pass: the output is the accumulated colour.
+    out = filt if passes else filt[..., :3].contiguous()
+    return out, acc_hd, DenoiserState(history=new_history)
+
+
+def _temporal(history, radiance, hitdist, depth, normal, world_pos, motion,
+              view_proj, settings, lo, rad_lo):
+    """Launch ``denoise_temporal_kernel`` for the rows [lo, lo + m) of the
+    (m, W) inputs (checked by :func:`_denoise_kernels`). Returns the new
+    history (m, W, 3) int32, the accumulated colour and its luma (m, W,
+    4), the accumulated hit distance (m, W), the depth and normal (m, W,
+    4) and the passes' own terms (m, W, 2)."""
+    m, width = depth.shape
+    dev = depth.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    outs = (empty(m, width, 3, dtype=torch.int32), empty(m, width, 4),
+            empty(m, width), empty(m, width, 4), empty(m, width, 2))
+    s = settings
+    height = history.shape[0]
+    args = _TemporalArgs(
+        *(t.data_ptr() for t in (history, radiance, hitdist, depth, normal,
+                                 world_pos, motion, view_proj) + outs),
+        lo=lo, rows=m, width=width, height=height, rad_lo=rad_lo,
+        rad_rows=radiance.shape[0], clamp_sigma=s.clamp_sigma,
+        max_len=float(s.max_accumulated_frames - 1),
+        fast_max_len=float(s.fast_max_accumulated_frames - 1),
+        antilag_sigma=s.antilag_sigma, antilag_relative=s.antilag_relative,
+        hitdist_blur_scale=s.hitdist_blur_scale,
+        luminance_sigma=s.luminance_sigma, inv_9=_f32_recip(9.0),
+        inv_255=_f32_recip(255.0), w_hi=width - 0.5, h_hi=height - 0.5)
+    _launch("denoise_temporal", args, dev)
+    return outs
+
+
+def _atrous(filt_in, geom, terms, radiance, settings, lo, rad_lo, step,
+            last):
+    """Launch ``denoise_atrous_kernel``: one pass at ``step`` over the rows
+    [lo, lo + m) of the whole image's colour ``filt_in`` and ``geom`` (H,
+    W, 4), with the rows' ``terms`` (m, W, 2). Returns the filtered
+    colour and its luma (m, W, 4), or on the ``last`` pass the step's
+    output (m, W, 3)."""
+    m, width = terms.shape[:2]
+    dev = terms.device
+    out = torch.empty((m, width, 3 if last else 4), dtype=torch.float32,
+                      device=dev)
+    s = settings
+    args = _AtrousArgs(
+        filt_in=filt_in.data_ptr(), geom=geom.data_ptr(),
+        terms=terms.data_ptr(), radiance=radiance.data_ptr(),
+        filt_out=None if last else out.data_ptr(),
+        out=out.data_ptr() if last else None, lo=lo, rows=m, width=width,
+        height=filt_in.shape[0], rad_lo=rad_lo, step=step,
+        normal_power=int(s.normal_sigma),
+        depth_scale=1.0 / (s.depth_sigma * s.depth_sigma) * 8.0)
+    _launch("denoise_atrous", args, dev)
+    return out
