@@ -1803,6 +1803,8 @@ def _gbuffer_case(label, scene, cam, sky, width, height, tiled, lo=0,
     rays traced precise in between; at least ``instances`` instances hit
     and some rays miss. With ``timed``, each kernel's device time beside
     its bound and its plain version's time. Returns a dict of numbers."""
+    import ctypes
+
     import torch
     from dust_tpu_torch.ops import camera as cameralib
     from dust_tpu_torch.ops import gbuffer, hdda, shade
@@ -1859,7 +1861,9 @@ def _gbuffer_case(label, scene, cam, sky, width, height, tiled, lo=0,
     for name, fn, plain, nbytes in (
             ("primary_rays", rays, rays_plain, 24 * m),
             ("gbuffer_resolve",
-             lambda: gbuffer._launch("gbuffer_resolve", args, o.device),
+             lambda: gbuffer.LIBRARY.launch(
+                 "gbuffer_resolve_launch", ctypes.addressof(args),
+                 device=o.device, count="gbuffer_resolve"),
              resolve_plain, GBUFFER_READ_BYTES * m + out_bytes)):
         ms = _kernel_ms(fn)
         plain_ms = _ms(plain, 3)
@@ -2581,18 +2585,10 @@ def main() -> int:
         return rmse_np(a.float().cpu().numpy(), b.float().cpu().numpy())
 
     # ---- 2. build -----------------------------------------------------
-    t0 = time.perf_counter()
-    lib = hdda.build_library(verbose=True)
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    lib = gbuffer.build_library(verbose=True)
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    lib = spatial_hash.build_library(verbose=True)
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    lib = denoise.build_library(verbose=True)
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    for module in (hdda, gbuffer, spatial_hash, denoise):
+        t0 = time.perf_counter()
+        lib = module.LIBRARY.build(verbose=True)
+        print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     lib = native.build_library()
     print(f"build: {lib.name} (g++) in {time.perf_counter() - t0:.1f} s")

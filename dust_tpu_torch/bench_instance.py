@@ -11,8 +11,9 @@ Usage, from the root of a checkout, on a CUDA device:
    both on the loop route (``DUST_PALLAS_SCENE=loop``): 66 and 12
    launches.
 2. Builds each ``--source`` (default: the package's ``csrc/hdda.cu``)
-   with the package's nvcc flags, all at once, and prints each instance
-   kernel's registers, stack and spills (ptxas -v).
+   through :func:`dust_tpu_torch.csrc.build`, with the package's nvcc
+   flags, and prints each instance kernel's registers, stack and spills
+   (ptxas -v).
 3. Times every launch for every source from a CUDA-graph replay, the
    sources in turns (A, B, ..., B, A), and each mode's launches of a
    frame replayed back to back from one graph. Prints per launch the
@@ -37,12 +38,13 @@ JSON to ``--out``.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import ctypes
-import hashlib
+import io
 import json
 import os
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -110,7 +112,7 @@ template <int MODE>
 __device__ void trace_ray("""
 
 _PROBE_SET = r"""
-extern "C" int probe_set(void* steps, void* times) {
+extern "C" int probe_set(void* steps, void* times, void* /*stream*/) {
   cudaMemcpyToSymbol(g_probe_steps, &steps, sizeof(void*));
   cudaMemcpyToSymbol(g_probe_time, &times, sizeof(void*));
   return static_cast<int>(cudaGetLastError());
@@ -165,27 +167,33 @@ def ptxas_table(err: str) -> dict:
 
 
 class Build:
-    """One source's library, bound: :meth:`launcher` calls its
-    ``hdda_instance_launch``, whose parameters are read from the source
-    (a ``scratch`` pointer where it takes one: the designs with a queue
-    in device memory, PERF.md section 6)."""
+    """One source's library (:class:`dust_tpu_torch.csrc.Library`), built
+    with the package's flags; ``ptxas`` is its ptxas report's table.
+    :meth:`launcher` launches its
+    ``hdda_instance_launch``, whose parameters are read from the source (a
+    ``scratch`` pointer where it takes one: the designs with a queue in
+    device memory, PERF.md section 6)."""
 
-    def __init__(self, label, lib_path, text, ptxas):
+    def __init__(self, label, source, stem):
+        from dust_tpu_torch import csrc
+
         self.label = label
-        self.ptxas = ptxas
-        self.lib = ctypes.CDLL(str(lib_path))
+        text = Path(source).read_text()
         m = re.search(r'extern "C" int hdda_instance_launch\((.*?)\)', text,
                       re.S)
         self.scratch = "scratch" in m.group(1)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn = self.lib.hdda_instance_launch
-        fn.argtypes = ([ci] + [vp] * 12 + [ci, ci]
-                       + ([vp] if self.scratch else []) + [vp])
-        fn.restype = ci
-        self.fn = fn
+        self.launches = collections.Counter()
+        entries = {"hdda_instance_launch": (
+            [ci] + [vp] * 12 + [ci, ci] + ([vp] if self.scratch else []),
+            self.launches)}
         if "probe_set(" in text:
-            self.lib.probe_set.argtypes = [vp, vp]
-            self.lib.probe_set.restype = ci
+            entries["probe_set"] = ([vp, vp], self.launches)
+        self.lib = csrc.Library(Path(source).resolve(), stem, entries)
+        report = io.StringIO()
+        with contextlib.redirect_stdout(report):
+            self.lib.build(verbose=True)
+        self.ptxas = ptxas_table(report.getvalue())
 
     def launcher(self, rec):
         """A function that launches ``rec`` into outputs allocated once;
@@ -210,42 +218,32 @@ class Build:
         outs = (s0, s1, row) if fused else (s0, row, bit)
 
         def go():
-            err = self.fn(*head, *tail,
-                          torch.cuda.current_stream(dev).cuda_stream)
-            if err:
-                raise RuntimeError(f"{self.label}: launch failed, CUDA error "
-                                   f"{err}")
+            self.lib.launch("hdda_instance_launch", *head, *tail, device=dev,
+                            count=rec["mode"])
             return outs
 
         return go
 
+    def probe_set(self, steps, times, dev):
+        """Point the probe's buffers at ``steps`` and ``times`` (or off)."""
+        self.lib.launch("probe_set", steps, times, device=dev,
+                        count="probe_set")
+
 
 def build_all(sources, probe=False):
-    """Compiles every source at once (one nvcc each) into ``build/``;
-    returns a :class:`Build` per source."""
-    from dust_tpu_torch.ops import hdda
-
+    """Builds every source (with ``probe``, its instrumented copy, written
+    into ``build/``); returns a :class:`Build` per source."""
     BUILD.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for src in sources:
-        text = Path(src).read_text()
-        if probe:
-            text = instrument(text)
-        tag = hashlib.sha256((text + " ".join(hdda.NVCC_FLAGS)).encode()
-                             ).hexdigest()[:16]
-        stem = Path(src).stem + ("_probe" if probe else "")
-        cu, lib = BUILD / f"{stem}_{tag}.cu", BUILD / f"lib{stem}_{tag}.so"
-        cu.write_text(text)
-        cmd = [hdda._nvcc(), *hdda.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-               str(lib), str(cu)]
-        jobs.append((src, lib, text, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     builds = []
-    for src, lib, text, proc in jobs:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{err}")
-        builds.append(Build(str(src), lib, text, ptxas_table(err)))
+    for i, src in enumerate(sources):
+        stem = Path(src).stem
+        if probe:
+            stem += "_probe"
+            copy = BUILD / f"{i}_{stem}.cu"
+            copy.write_text(instrument(Path(src).read_text()))
+            builds.append(Build(str(src), copy, stem))
+        else:
+            builds.append(Build(str(src), src, stem))
     return builds
 
 
@@ -376,19 +374,19 @@ def probe(build, rec):
     go()
     steps = torch.zeros(2 * (threads // 32 + 1), dtype=torch.int64,
                         device=dev)
-    build.lib.probe_set(steps.data_ptr(), None)
+    build.probe_set(steps.data_ptr(), None, dev)
     go()
     torch.cuda.synchronize()
-    build.lib.probe_set(None, None)
+    build.probe_set(None, None, dev)
     st = steps.view(-1, 2).cpu().numpy()
     st = st[st[:, 0] > 0]
     per_warp = st[:, 1] / st[:, 0]
     times = torch.zeros(3 * threads, dtype=torch.int64, device=dev)
     times.view(-1, 3)[:, 0] = -1          # atomicMin's start (UINT64_MAX)
-    build.lib.probe_set(None, times.data_ptr())
+    build.probe_set(None, times.data_ptr(), dev)
     go()
     torch.cuda.synchronize()
-    build.lib.probe_set(None, None)
+    build.probe_set(None, None, dev)
     t = times.view(-1, 3).cpu().numpy()
     t = t[t[:, 0] != -1]
     start, end, block = t[:, 0], t[:, 1], t[:, 2]

@@ -2,12 +2,12 @@
 the port's counterpart of :mod:`dust_tpu.native`, built from its own copy
 of the source.
 
-The library is compiled with ``g++`` at first use into
-``build/dust_tpu_torch/``, under a name hashed from the source and the
-flags, as :mod:`dust_tpu_torch.ops.hdda` builds its kernel; importing
-builds nothing. A missing compiler or a failed compile raises
-``RuntimeError`` with the compiler's message: nothing falls back to numpy.
-The plain versions that the tests hold these against are
+The library is compiled with ``g++`` at first use by
+:func:`dust_tpu_torch.csrc.build`, which builds the CUDA kernels too,
+into ``build/dust_tpu_torch/`` under a name hashed from the source and
+the flags; importing builds nothing. A missing compiler or a failed
+compile raises ``RuntimeError`` with the compiler's message: nothing
+falls back to numpy. The plain versions that the tests hold these against are
 :meth:`VoxTree.from_voxels` with :func:`collect_material_indices`
 (``build_leaves`` with :meth:`FlatTree.from_dense_pools`) and
 ``render.scene._chebyshev_plain`` (``chebyshev``).
@@ -19,56 +19,27 @@ staged rebuild runs beside the render thread.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 import numpy as np
+
+from dust_tpu_torch import csrc
 
 __all__ = ["available", "build_library", "build_leaves", "chebyshev"]
 
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 _SOURCE = Path(__file__).resolve().parent / "voxcore.cpp"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dust_tpu_torch"
 _BLOCKS = 64 ** 3
 _LIB = None
 _LOCK = threading.Lock()
 
 
-def _cxx() -> str:
-    path = shutil.which(CXX)
-    if path is None:
-        raise RuntimeError(f"{CXX} not found: the native scene build is "
-                           f"compiled from {_SOURCE} with a C++17 compiler")
-    return path
-
-
 def build_library() -> Path:
-    """Compile ``voxcore.cpp`` into ``build/dust_tpu_torch/`` unless a
-    library built from the same source and flags is already there. The
-    library is written under a temporary name and renamed into place, so
-    processes that build at once each load a whole file."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libvoxcore_{tag}.so"
-    if out.exists():
-        return out
-    cxx = _cxx()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(_SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"{CXX} failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile ``voxcore.cpp`` with :data:`CXX` and :data:`CXX_FLAGS`
+    (:func:`dust_tpu_torch.csrc.build`)."""
+    return csrc.build(_SOURCE, "voxcore", CXX, CXX_FLAGS)
 
 
 def _library():

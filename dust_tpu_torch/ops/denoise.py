@@ -5,9 +5,9 @@
 CPU tensors, and on CUDA tensors the two kernels of ``csrc/denoise.cu``:
 ``denoise_temporal_kernel`` (everything before the à-trous loop, one
 launch a step) and ``denoise_atrous_kernel`` (one launch a pass), equal
-to the plain version bit for bit. The library is built at first use
-with the HDDA kernel's flags (:func:`dust_tpu_torch.ops.hdda.build_cuda`:
-``hdda.NVCC_FLAGS``, with ``-fmad=false``).
+to the plain version bit for bit. :data:`LIBRARY`
+(:class:`dust_tpu_torch.csrc.Library`) builds them at the first launch
+and counts each launch in :data:`LAUNCHES`.
 
 The history is kept exactly as the reference keeps it, one (H, W, 3)
 array of 32-bit words per pixel (here int32 tensors holding the bits),
@@ -22,20 +22,19 @@ because its quantisation changes the numbers:
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from dust_tpu_torch import csrc
 from dust_tpu_torch.config import DenoiserSettings
-from dust_tpu_torch.ops import hdda
+from dust_tpu_torch.csrc import check, f32_recip, on_cuda
 from dust_tpu_torch.ops import packing as pk
-from dust_tpu_torch.ops.gbuffer import _f32_recip
 from dust_tpu_torch.ops.fp import as_i32, as_u32, bits_f16, f16_bits
 
 __all__ = ["DenoiserState", "make_denoiser_state", "denoise",
            "denoise_plain", "downsample_inputs", "upsample_bilateral",
-           "build_library", "LAUNCHES"]
+           "LIBRARY", "LAUNCHES"]
 
 _C = 3
 _HD_MAX = 60000.0
@@ -415,11 +414,8 @@ def denoise(state: DenoiserState, radiance, hitdist, depth, normal,
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernels: build, bind, launch
+# The CUDA kernels' launches
 # ---------------------------------------------------------------------------
-
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "denoise.cu"
-_LIB = None
 
 # Launches of each kernel since the last reset (the plain version counts
 # nothing).
@@ -448,43 +444,9 @@ class _AtrousArgs(ctypes.Structure):
             "normal_power")] + [("depth_scale", _cf)]
 
 
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/denoise.cu`` (:func:`hdda.build_cuda`)."""
-    return hdda.build_cuda(_SOURCE, "denoise", verbose)
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
-        for name in ("denoise_temporal_launch", "denoise_atrous_launch"):
-            fn = getattr(lib, name)
-            fn.argtypes = [_vp, _vp]
-            fn.restype = _ci
-        _LIB = lib
-    return _LIB
-
-
-def _launch(name, args, dev):
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"{name}_launch")(ctypes.addressof(args), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-
-
-def _input(name, t, shape, dev):
-    """``t`` checked (float32, ``shape``, on ``dev``), contiguous."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.device != dev:
-        raise ValueError(f"{name}: on {t.device}, depth on {dev}")
-    return t.contiguous()
+LIBRARY = csrc.Library("denoise.cu", "denoise", {
+    "denoise_temporal_launch": ([_vp], LAUNCHES),
+    "denoise_atrous_launch": ([_vp], LAUNCHES)})
 
 
 def _denoise_kernels(state, radiance, hitdist, depth, normal, world_pos,
@@ -515,24 +477,21 @@ def _denoise_kernels(state, radiance, hitdist, depth, normal, world_pos,
     if not n_sigma.is_integer() or n_sigma < 1:
         raise ValueError(f"denoise: normal_sigma {n_sigma} (the kernel "
                          "takes a positive integer power)")
-    if history.dtype != torch.int32:
-        raise TypeError(f"history: expected torch.int32, got "
-                        f"{history.dtype}")
-    if tuple(history.shape) != (height, width, 3) or history.device != dev:
-        raise ValueError(f"history: expected ({height}, {width}, 3) on "
-                         f"{dev}, got {tuple(history.shape)} on "
-                         f"{history.device}")
-    radiance = _input("radiance", radiance, (rad_hi - rad_lo, width, 3), dev)
-    inputs = [_input(name, t, shape, dev) for name, t, shape in (
-        ("hitdist", hitdist, (m, width)), ("depth", depth, (m, width)),
-        ("normal", normal, (m, width, 3)),
-        ("world_pos", world_pos, (m, width, 3)),
-        ("motion", motion, (m, width, 3)),
-        ("prev_view_proj", prev_view_proj, (4, 4)))]
-    if dev.type != "cuda":
-        raise ValueError(f"denoise: unsupported device {dev}")
+    # Inputs are copied to contiguous, not refused.
+    history = check("history", history.contiguous(), torch.int32,
+                    (height, width, 3), dev)
+    radiance, *inputs = [
+        check(name, t.contiguous(), torch.float32, shape, dev)
+        for name, t, shape in (
+            ("radiance", radiance, (rad_hi - rad_lo, width, 3)),
+            ("hitdist", hitdist, (m, width)), ("depth", depth, (m, width)),
+            ("normal", normal, (m, width, 3)),
+            ("world_pos", world_pos, (m, width, 3)),
+            ("motion", motion, (m, width, 3)),
+            ("prev_view_proj", prev_view_proj, (4, 4)))]
+    on_cuda("denoise", dev, m * width, "pixels")
     new_history, filt, acc_hd, geom, terms = _temporal(
-        history.contiguous(), radiance, *inputs, settings, lo, rad_lo)
+        history, radiance, *inputs, settings, lo, rad_lo)
     passes = settings.atrous_iterations
     if gather is not None and passes:
         geom = gather(geom).contiguous()
@@ -571,9 +530,10 @@ def _temporal(history, radiance, hitdist, depth, normal, world_pos, motion,
         fast_max_len=float(s.fast_max_accumulated_frames - 1),
         antilag_sigma=s.antilag_sigma, antilag_relative=s.antilag_relative,
         hitdist_blur_scale=s.hitdist_blur_scale,
-        luminance_sigma=s.luminance_sigma, inv_9=_f32_recip(9.0),
-        inv_255=_f32_recip(255.0), w_hi=width - 0.5, h_hi=height - 0.5)
-    _launch("denoise_temporal", args, dev)
+        luminance_sigma=s.luminance_sigma, inv_9=f32_recip(9.0),
+        inv_255=f32_recip(255.0), w_hi=width - 0.5, h_hi=height - 0.5)
+    LIBRARY.launch("denoise_temporal_launch", ctypes.addressof(args),
+                   device=dev, count="denoise_temporal")
     return outs
 
 
@@ -597,5 +557,6 @@ def _atrous(filt_in, geom, terms, radiance, settings, lo, rad_lo, step,
         height=filt_in.shape[0], rad_lo=rad_lo, step=step,
         normal_power=int(s.normal_sigma),
         depth_scale=1.0 / (s.depth_sigma * s.depth_sigma) * 8.0)
-    _launch("denoise_atrous", args, dev)
+    LIBRARY.launch("denoise_atrous_launch", ctypes.addressof(args),
+                   device=dev, count="denoise_atrous")
     return out

@@ -1,4 +1,5 @@
-"""The primary stage's G-buffer kernels: build, bind, launch.
+"""The primary stage's G-buffer kernels: their launch arguments and
+checks.
 
 ``csrc/gbuffer.cu`` holds two kernels around the primary trace, one
 thread per ray:
@@ -13,27 +14,23 @@ thread per ray:
 Their entry points, :func:`~dust_tpu_torch.ops.camera.primary_rays` and
 :func:`~dust_tpu_torch.ops.shade.resolve_primary`, run the plain versions
 for CPU tensors and call :func:`rays` / :func:`resolve` here for any
-other, which launch the kernels on CUDA tensors or raise. The library
-is built at first use with the HDDA kernel's flags
-(:func:`dust_tpu_torch.ops.hdda.build_cuda`: ``hdda.NVCC_FLAGS``, with
-``-fmad=false``).
+other, which launch the kernels on CUDA tensors or raise.
+:data:`LIBRARY` (:class:`dust_tpu_torch.csrc.Library`) builds them at
+the first launch and counts each launch in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from dust_tpu_torch.ops import hdda
+from dust_tpu_torch import csrc
+from dust_tpu_torch.csrc import check, f32_recip, on_cuda
 from dust_tpu_torch.utils import color as colorlib
 
-__all__ = ["build_library", "rays", "resolve", "LAUNCHES"]
-
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "gbuffer.cu"
-_LIB = None
+__all__ = ["rays", "resolve", "LIBRARY", "LAUNCHES"]
 
 # Launches of each kernel since the last reset (the plain versions count
 # nothing).
@@ -63,45 +60,9 @@ class _ResolveArgs(ctypes.Structure):
         ("va_rows", _ll), ("n", _ci)]
 
 
-def _f32_recip(x: float) -> float:
-    """1 / x rounded to float32, as PyTorch's CUDA kernel takes a float32
-    tensor divided by the Python number ``x``: it multiplies by this
-    reciprocal."""
-    return float(np.float32(1.0 / x))
-
-
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/gbuffer.cu`` (:func:`hdda.build_cuda`)."""
-    return hdda.build_cuda(_SOURCE, "gbuffer", verbose)
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
-        for name in ("primary_rays_launch", "gbuffer_resolve_launch"):
-            fn = getattr(lib, name)
-            fn.argtypes = [_vp, _vp]
-            fn.restype = _ci
-        _LIB = lib
-    return _LIB
-
-
-def _on_cuda(name, dev, n):
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if n >= 2 ** 31:
-        raise ValueError(f"{name}: {n} rays, more than a launch takes")
-
-
-def _launch(name, args, dev):
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"{name}_launch")(ctypes.addressof(args), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+LIBRARY = csrc.Library("gbuffer.cu", "gbuffer", {
+    "primary_rays_launch": ([_vp], LAUNCHES),
+    "gbuffer_resolve_launch": ([_vp], LAUNCHES)})
 
 
 def rays(cam, width: int, height: int, tiled: bool, lo: int, hi: int):
@@ -109,11 +70,10 @@ def rays(cam, width: int, height: int, tiled: bool, lo: int, hi: int):
     ``[lo, hi)``, each (hi - lo, 3) float32 (contract of
     :func:`~dust_tpu_torch.ops.camera.primary_rays`)."""
     dev = cam.position.device
-    _on_cuda("primary_rays", dev, hi - lo)
-    _check = hdda._check
-    _check("view_cols", cam.view_cols, torch.float32, (3, 3), dev)
-    _check("position", cam.position, torch.float32, (3,), dev)
-    _check("tan_half_fov", cam.tan_half_fov, torch.float32, (), dev)
+    on_cuda("primary_rays", dev, hi - lo, "rays")
+    check("view_cols", cam.view_cols, torch.float32, (3, 3), dev)
+    check("position", cam.position, torch.float32, (3,), dev)
+    check("tan_half_fov", cam.tan_half_fov, torch.float32, (), dev)
     m = hi - lo
     origin = torch.empty((m, 3), dtype=torch.float32, device=dev)
     direction = torch.empty((m, 3), dtype=torch.float32, device=dev)
@@ -121,9 +81,10 @@ def rays(cam, width: int, height: int, tiled: bool, lo: int, hi: int):
         view_cols=cam.view_cols.data_ptr(), position=cam.position.data_ptr(),
         tan_half_fov=cam.tan_half_fov.data_ptr(), origin=origin.data_ptr(),
         dir=direction.data_ptr(), lo=lo, count=m, width=width, height=height,
-        tiled=int(tiled), inv_w=_f32_recip(width), inv_h=_f32_recip(height),
+        tiled=int(tiled), inv_w=f32_recip(width), inv_h=f32_recip(height),
         aspect=float(np.float32(width / height)))
-    _launch("primary_rays", args, dev)
+    LIBRARY.launch("primary_rays_launch", ctypes.addressof(args), device=dev,
+                   count="primary_rays")
     return origin, direction
 
 
@@ -132,7 +93,8 @@ def resolve(scene, res, origin_w, dir_w, sky_state=None) -> dict:
     :func:`~dust_tpu_torch.ops.shade.resolve_primary`, with ``sky_out``
     when ``sky_state`` is given."""
     args, g = _resolve_args(scene, res, origin_w, dir_w, sky_state)
-    _launch("gbuffer_resolve", args, origin_w.device)
+    LIBRARY.launch("gbuffer_resolve_launch", ctypes.addressof(args),
+                   device=origin_w.device, count="gbuffer_resolve")
     return g
 
 
@@ -141,23 +103,22 @@ def _resolve_args(scene, res, origin_w, dir_w, sky_state):
     allocated (the upload of ``inst_leaf_base`` is the one host sync)."""
     dev = origin_w.device
     n = origin_w.shape[0]
-    _on_cuda("gbuffer_resolve", dev, n)
+    on_cuda("gbuffer_resolve", dev, n, "rays")
     n_inst = scene.world_to_obj.shape[0]
     va_rows = scene.voxel_attr.shape[0]
-    _check = hdda._check
-    _check("t", res.t, torch.float32, (n,), dev)
+    check("t", res.t, torch.float32, (n,), dev)
     for name in ("inst", "row", "bit"):
-        _check(name, getattr(res, name), torch.int32, (n,), dev)
-    _check("origin_w", origin_w, torch.float32, (n, 3), dev)
-    _check("dir_w", dir_w, torch.float32, (n, 3), dev)
-    _check("voxel_attr", scene.voxel_attr, torch.int32, (va_rows, 16), dev)
+        check(name, getattr(res, name), torch.int32, (n,), dev)
+    check("origin_w", origin_w, torch.float32, (n, 3), dev)
+    check("dir_w", dir_w, torch.float32, (n, 3), dev)
+    check("voxel_attr", scene.voxel_attr, torch.int32, (va_rows, 16), dev)
     for name in ("world_to_obj", "obj_to_world", "prev_obj_to_world"):
-        _check(name, getattr(scene, name), torch.float32, (n_inst, 3, 4),
-               dev)
+        check(name, getattr(scene, name), torch.float32, (n_inst, 3, 4),
+              dev)
     if va_rows == 0:
         raise ValueError("voxel_attr: no rows")
     base = torch.tensor(scene.inst_leaf_base, dtype=torch.long, device=dev)
-    _check("inst_leaf_base", base, torch.long, (n_inst,), dev)
+    check("inst_leaf_base", base, torch.long, (n_inst,), dev)
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -173,7 +134,7 @@ def _resolve_args(scene, res, origin_w, dir_w, sky_state):
                             ("solar_intensity", (3,)),
                             ("solar_radius", ())):
             t = getattr(sky_state, name)
-            _check(f"sky_state.{name}", t, torch.float32, shape, dev)
+            check(f"sky_state.{name}", t, torch.float32, shape, dev)
             sky[name] = t.data_ptr()
         g["sky_out"] = empty(n, 3)
     args = _ResolveArgs(
@@ -196,7 +157,7 @@ def _resolve_args(scene, res, origin_w, dir_w, sky_state):
         palette_idx=g["palette_idx"].data_ptr(),
         sky_out=g["sky_out"].data_ptr() if "sky_out" in g else None,
         xyz_to_acescg=(_cf * 9)(*colorlib.XYZ_TO_ACESCG.reshape(-1).tolist()),
-        inv_255=_f32_recip(255.0), inv_pi=_f32_recip(3.14), va_rows=va_rows,
+        inv_255=f32_recip(255.0), inv_pi=f32_recip(3.14), va_rows=va_rows,
         n=n)
     args.keep = (base,)  # alive as long as the arguments point into it
     return args, g

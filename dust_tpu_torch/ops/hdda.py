@@ -40,6 +40,9 @@ Three implementations of each kernel's function live here:
   on both sides, see :mod:`dust_tpu_torch.ops.fp`).
 * :func:`hdda` / :func:`hdda_instance` — the launch wrappers: the kernel
   for CUDA tensors, the plain version for CPU tensors, nothing else.
+  :data:`LIBRARY` (:class:`dust_tpu_torch.csrc.Library`) builds the
+  kernels at the first launch and counts each launch in
+  :data:`LAUNCHES` or :data:`INSTANCE_LAUNCHES`.
 
 Table layout (flat; the reference tiles the same contents in (8, 128)):
 
@@ -58,17 +61,14 @@ Table layout (flat; the reference tiles the same contents in (8, 128)):
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from dust_tpu_torch import csrc
+from dust_tpu_torch.csrc import check
 from dust_tpu_torch.ops.fp import fma as _fma
 from dust_tpu_torch.ops.fp import sqrt as _sqrt
 from dust_tpu_torch.ops.traverse import (TraceResult, clip_to_model_aabb,
@@ -586,80 +586,17 @@ def hdda_instance_plain(l1, l2, mask, origin, direction, s_min, s_stop,
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel: build, bind, launch
+# The CUDA kernels' launches
 # ---------------------------------------------------------------------------
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "hdda.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dust_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-_LIB = None
-
-
-def _nvcc(source: Path = _SOURCE) -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError(f"nvcc not found: {source.name} is built with "
-                           "the CUDA toolkit")
-    return path
-
-
-def build_cuda(source: Path, stem: str, verbose: bool = False) -> Path:
-    """Compile the CUDA source ``source`` with :data:`NVCC_FLAGS` into
-    ``build/dust_tpu_torch/lib<stem>_<hash>.so`` unless a library built
-    from the same source and flags is already there."""
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"lib{stem}_{tag}.so"
-    if out.exists():
-        return out
-    nvcc = _nvcc(source)
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o",
-           tmp, str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
-    return out
-
-
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/hdda.cu`` (:func:`build_cuda`)."""
-    return build_cuda(_SOURCE, "hdda", verbose)
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.hdda_launch.argtypes = [ci, vp, vp, vp, ci, ci, vp, vp, vp, vp, ci,
-                                    vp, vp, vp, vp, vp,
-                                    vp, vp, vp, vp, vp, vp, ci, vp]
-        lib.hdda_launch.restype = ci
-        lib.hdda_instance_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp,
-                                             vp, vp, vp, vp, vp, ci, ci, vp]
-        lib.hdda_instance_launch.restype = ci
-        _LIB = lib
-    return _LIB
-
-
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, rays on {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIBRARY = csrc.Library("hdda.cu", "hdda", {
+    "hdda_launch": ([_ci, _vp, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _ci,
+                     _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                     _ci], LAUNCHES),
+    "hdda_instance_launch": ([_ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                              _vp, _vp, _vp, _vp, _ci, _ci],
+                             INSTANCE_LAUNCHES)})
 
 
 def _ptr(t):
@@ -687,28 +624,27 @@ def hdda(l1, l2, mask, inst_model, inst_ids, aff, aabb,
     M = l1.shape[0]
     I = inst_model.shape[0]
     rows = mask.shape[1]
-    _check("l1", l1, torch.int32, (M, 512), dev)
-    _check("l2", l2, torch.int32, (M, 4096, 4), dev)
-    _check("mask", mask, torch.int32, (M, rows, 2), dev)
-    _check("inst_model", inst_model, torch.int32, (I,), dev)
-    _check("inst_ids", inst_ids, torch.int32, (I,), dev)
-    _check("aff", aff, torch.float32, (I, 12), dev)
-    _check("aabb", aabb, torch.float32, (M, 6), dev)
-    _check("origin", origin, torch.float32, (n, 3), dev)
-    _check("direction", direction, torch.float32, (n, 3), dev)
-    _check("t_min", t_min, torch.float32, (n,), dev)
-    _check("t_max", t_max, torch.float32, (n,), dev)
+    check("l1", l1, torch.int32, (M, 512), dev)
+    check("l2", l2, torch.int32, (M, 4096, 4), dev)
+    check("mask", mask, torch.int32, (M, rows, 2), dev)
+    check("inst_model", inst_model, torch.int32, (I,), dev)
+    check("inst_ids", inst_ids, torch.int32, (I,), dev)
+    check("aff", aff, torch.float32, (I, 12), dev)
+    check("aabb", aabb, torch.float32, (M, 6), dev)
+    check("origin", origin, torch.float32, (n, 3), dev)
+    check("direction", direction, torch.float32, (n, 3), dev)
+    check("t_min", t_min, torch.float32, (n,), dev)
+    check("t_max", t_max, torch.float32, (n,), dev)
     if fused:
         if t_ao is None:
             raise ValueError("mode 'ao_fg' needs t_ao")
-        _check("t_ao", t_ao, torch.float32, (n,), dev)
+        check("t_ao", t_ao, torch.float32, (n,), dev)
     if dev.type == "cpu":
         return hdda_plain(l1, l2, mask, inst_model, inst_ids, aff, aabb,
                           origin, direction, t_min, t_max, t_ao, mode)
     if dev.type != "cuda":
         raise ValueError(f"hdda: unsupported device {dev}")
 
-    lib = _library()
     t0 = torch.empty(n, dtype=torch.float32, device=dev)
     i0 = torch.empty(n, dtype=torch.int32, device=dev)
     row = torch.empty(n, dtype=torch.int32, device=dev)
@@ -716,17 +652,12 @@ def hdda(l1, l2, mask, inst_model, inst_ids, aff, aabb,
     t1 = torch.empty(n, dtype=torch.float32, device=dev) if fused else None
     i1 = torch.empty(n, dtype=torch.int32, device=dev) if fused else None
 
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hdda_launch(
-            _MODE_ID[mode], _ptr(l1), _ptr(l2), _ptr(mask), M, rows,
-            _ptr(inst_model), _ptr(inst_ids), _ptr(aff), _ptr(aabb), I,
-            _ptr(origin), _ptr(direction), _ptr(t_min), _ptr(t_max),
-            _ptr(t_ao), _ptr(t0), _ptr(i0), _ptr(t1), _ptr(i1), _ptr(row),
-            _ptr(bit), n, stream)
-    if err != 0:
-        raise RuntimeError(f"hdda kernel launch failed: CUDA error {err}")
-    LAUNCHES[mode] += 1
+    LIBRARY.launch(
+        "hdda_launch", _MODE_ID[mode], _ptr(l1), _ptr(l2), _ptr(mask), M,
+        rows, _ptr(inst_model), _ptr(inst_ids), _ptr(aff), _ptr(aabb), I,
+        _ptr(origin), _ptr(direction), _ptr(t_min), _ptr(t_max), _ptr(t_ao),
+        _ptr(t0), _ptr(i0), _ptr(t1), _ptr(i1), _ptr(row), _ptr(bit), n,
+        device=dev, count=mode)
     if fused:
         return t0, i0, t1, i1, row
     return t0, i0, row, bit
@@ -752,39 +683,32 @@ def hdda_instance(l1, l2, mask, origin, direction, s_min, s_stop, s_ao=None,
     dev = origin.device
     n = origin.shape[0]
     rows = mask.shape[0]
-    _check("l1", l1, torch.int32, (512,), dev)
-    _check("l2", l2, torch.int32, (4096, 4), dev)
-    _check("mask", mask, torch.int32, (rows, 2), dev)
-    _check("origin", origin, torch.float32, (n, 3), dev)
-    _check("direction", direction, torch.float32, (n, 3), dev)
-    _check("s_min", s_min, torch.float32, (n,), dev)
-    _check("s_stop", s_stop, torch.float32, (n,), dev)
+    check("l1", l1, torch.int32, (512,), dev)
+    check("l2", l2, torch.int32, (4096, 4), dev)
+    check("mask", mask, torch.int32, (rows, 2), dev)
+    check("origin", origin, torch.float32, (n, 3), dev)
+    check("direction", direction, torch.float32, (n, 3), dev)
+    check("s_min", s_min, torch.float32, (n,), dev)
+    check("s_stop", s_stop, torch.float32, (n,), dev)
     if fused:
         if s_ao is None:
             raise ValueError("mode 'ao_fg' needs s_ao")
-        _check("s_ao", s_ao, torch.float32, (n,), dev)
+        check("s_ao", s_ao, torch.float32, (n,), dev)
     if dev.type == "cpu":
         return hdda_instance_plain(l1, l2, mask, origin, direction, s_min,
                                    s_stop, s_ao, mode, rounds)
     if dev.type != "cuda":
         raise ValueError(f"hdda_instance: unsupported device {dev}")
 
-    lib = _library()
     s0 = torch.empty(n, dtype=torch.float32, device=dev)
     row = torch.empty(n, dtype=torch.int32, device=dev)
     s1 = torch.empty(n, dtype=torch.float32, device=dev) if fused else None
     bit = None if fused else torch.empty(n, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hdda_instance_launch(
-            _MODE_ID[mode], _ptr(l1), _ptr(l2), _ptr(mask), _ptr(origin),
-            _ptr(direction), _ptr(s_min), _ptr(s_stop),
-            _ptr(s_ao if fused else None), _ptr(s0), _ptr(s1), _ptr(row),
-            _ptr(bit), n, rounds, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"hdda_instance kernel launch failed: CUDA error {err}")
-    INSTANCE_LAUNCHES[mode] += 1
+    LIBRARY.launch(
+        "hdda_instance_launch", _MODE_ID[mode], _ptr(l1), _ptr(l2),
+        _ptr(mask), _ptr(origin), _ptr(direction), _ptr(s_min), _ptr(s_stop),
+        _ptr(s_ao if fused else None), _ptr(s0), _ptr(s1), _ptr(row),
+        _ptr(bit), n, rounds, device=dev, count=mode)
     if fused:
         return s0, s1, row
     return s0, row, bit

@@ -23,23 +23,23 @@ The frame's two uses have kernels in ``csrc/spatial_hash.cu``:
 :func:`hash_insert`. On CPU tensors they run their plain versions,
 :func:`probe_working_set_plain` and :func:`hash_insert_plain` (this
 module's torch code); on CUDA tensors they launch the kernels, and on
-any other device they raise. The library is built at first use with the
-HDDA kernel's flags (:func:`dust_tpu_torch.ops.hdda.build_cuda`:
-``-fmad=false``).
+any other device they raise. :data:`LIBRARY`
+(:class:`dust_tpu_torch.csrc.Library`) builds them at the first launch
+and counts each launch in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from dust_tpu_torch import csrc
+from dust_tpu_torch.csrc import check, f32_recip, on_cuda
 from dust_tpu_torch.ops import gi_cache as gilib
-from dust_tpu_torch.ops import hdda
 from dust_tpu_torch.ops import packing as pk
 from dust_tpu_torch.ops.fp import as_i32, as_u32, fma
 from dust_tpu_torch.ops.packing import decode_logluv, encode_logluv
@@ -48,14 +48,12 @@ from dust_tpu_torch.utils import color as colorlib
 __all__ = ["SpatialHash", "make_spatial_hash", "hash_get", "hash_insert",
            "hash_insert_plain", "probe_working_set",
            "probe_working_set_plain", "spatial_hash_key", "key_fingerprint",
-           "key_location", "build_library", "logluv", "LAUNCHES",
+           "key_location", "logluv", "LIBRARY", "LAUNCHES",
            "MAX_SAMPLE_COUNT"]
 
 MAX_SAMPLE_COUNT = 404
 _M32 = 0xFFFFFFFF
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "spatial_hash.cu"
-_LIB = None
 # Keys a scan block of the insert's suffix sums (kScanBlock in the source).
 _SCAN_BLOCK = 1024
 
@@ -357,7 +355,7 @@ def probe_working_set_plain(hash_: SpatialHash, centers: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The kernels: build, bind, launch
+# The kernels' launches
 
 _vp, _ci, _ll, _cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float)
@@ -405,53 +403,21 @@ def _logluv_constants() -> _LogLuv:
     return _LogLuv(acescg_to_xyz=mat(colorlib.ACESCG_TO_XYZ),
                    xyz_to_acescg=mat(colorlib.XYZ_TO_ACESCG),
                    inv_409_6=pk._INV_409_6, ln2=pk._LN2,
-                   inv_ln2=_f32(1.0 / pk._LN2), u4=pk._U_SCALE[4],
+                   inv_ln2=f32_recip(pk._LN2), u4=pk._U_SCALE[4],
                    u6=pk._U_SCALE[6], u9=pk._U_SCALE[9],
                    u16=pk._U_SCALE[16])
 
 
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/spatial_hash.cu`` (:func:`hdda.build_cuda`)."""
-    return hdda.build_cuda(_SOURCE, "spatial_hash", verbose)
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
-        for name in ("spatial_hash_probe_launch",
-                     "spatial_hash_logluv_launch"):
-            fn = getattr(lib, name)
-            fn.argtypes = [_vp, _vp]
-            fn.restype = _ci
-        lib.spatial_hash_insert_launch.argtypes = [_vp, _ci, _vp]
-        lib.spatial_hash_insert_launch.restype = _ci
-        _LIB = lib
-    return _LIB
-
-
-def _on_cuda(name, dev, n):
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if n >= 2 ** 31:
-        raise ValueError(f"{name}: {n} keys, more than a launch takes")
-
-
-def _launch(fn, args, dev, kernel, *extra):
-    """Call ``fn`` of the library on the current stream of ``dev``; count
-    a launch of ``kernel``."""
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_library(), fn)(ctypes.addressof(args), *extra, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} failed: CUDA error {err}")
-    LAUNCHES[kernel] += 1
+LIBRARY = csrc.Library("spatial_hash.cu", "spatial_hash", {
+    "spatial_hash_probe_launch": ([_vp], LAUNCHES),
+    "spatial_hash_insert_launch": ([_vp, _ci], LAUNCHES),
+    "spatial_hash_logluv_launch": ([_vp], LAUNCHES)})
 
 
 def _table(hash_: SpatialHash, dev):
     table = hash_.table
     ngroups = table.shape[0]
-    hdda._check("table", table, torch.int32, (ngroups, 16), dev)
+    check("table", table, torch.int32, (ngroups, 16), dev)
     if ngroups >= 2 ** 31:
         raise ValueError(f"table: {ngroups} groups, more than int32 holds")
     return table, ngroups
@@ -465,26 +431,26 @@ def _probe_kernel(hash_, centers, valid_cells, cell_size, albedo, ws, lo,
     cells = centers.shape[0]
     rows = 6 * cells
     hi = rows if hi is None else hi
-    _on_cuda("spatial_hash_probe", dev, rows)
+    on_cuda("spatial_hash_probe", dev, rows, "keys")
     if not 0 <= lo <= hi <= rows:
         raise ValueError(f"probe rows [{lo}, {hi}) outside [0, {rows})")
     table, ngroups = _table(hash_, dev)
-    _check = hdda._check
-    _check("centers", centers, torch.float32, (cells, 3), dev)
-    _check("valid_cells", valid_cells, torch.bool, (cells,), dev)
+    check("centers", centers, torch.float32, (cells, 3), dev)
+    check("valid_cells", valid_cells, torch.bool, (cells,), dev)
     if ws is None:
-        _check("albedo", albedo, torch.int32, (rows,), dev)
+        check("albedo", albedo, torch.int32, (rows,), dev)
         out = torch.empty((rows, 3), dtype=torch.int32, device=dev)
     else:
-        _check("ws", ws, torch.int32, (rows, 3), dev)
+        check("ws", ws, torch.int32, (rows, 3), dev)
         out = ws.clone()
     args = _ProbeArgs(
         table=table.data_ptr(), centers=centers.data_ptr(),
         valid_cells=valid_cells.data_ptr(),
         albedo=None if ws is not None else albedo.data_ptr(),
         out=out.data_ptr(), cells=cells, lo=lo, hi=hi, ngroups=ngroups,
-        inv_cell=_f32(1.0 / cell_size), luv=_logluv_constants())
-    _launch("spatial_hash_probe_launch", args, dev, "probe")
+        inv_cell=f32_recip(cell_size), luv=_logluv_constants())
+    LIBRARY.launch("spatial_hash_probe_launch", ctypes.addressof(args),
+                   device=dev, count="probe")
     return out
 
 
@@ -509,15 +475,14 @@ def _insert_args(hash_, qpos, face_id, value, frame_index, valid,
     value = value.reshape(-1, 3).contiguous()
     n = qpos.shape[0]
     dev = qpos.device
-    _on_cuda("spatial_hash_insert", dev, n)
+    on_cuda("spatial_hash_insert", dev, n, "keys")
     table, ngroups = _table(hash_, dev)
-    _check = hdda._check
-    _check("qpos", qpos, torch.int32, (n, 3), dev)
-    _check("face_id", face_id, torch.int32, (n,), dev)
-    _check("value", value, torch.float32, (n, 3), dev)
+    check("qpos", qpos, torch.int32, (n, 3), dev)
+    check("face_id", face_id, torch.int32, (n,), dev)
+    check("value", value, torch.float32, (n, 3), dev)
     if valid is not None:
         valid = valid.reshape(-1).contiguous()
-        _check("valid", valid, torch.bool, (n,), dev)
+        check("valid", valid, torch.bool, (n,), dev)
     out = table.clone()
     if n == 0:
         return None, out
@@ -561,8 +526,8 @@ _INSERT_STEPS = ("keys", "scan_up", "scan_blocks", "scan", "apply")
 def _insert_step(args, dev, step: int):
     """Launch the insert's kernel ``step`` (0-4: keys, scan_up,
     scan_blocks, scan, apply) with the arguments ``args``."""
-    _launch("spatial_hash_insert_launch", args, dev, _INSERT_STEPS[step],
-            step)
+    LIBRARY.launch("spatial_hash_insert_launch", ctypes.addressof(args), step,
+                   device=dev, count=_INSERT_STEPS[step])
 
 
 def logluv(x: torch.Tensor) -> torch.Tensor:
@@ -574,17 +539,18 @@ def logluv(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     dev = x.device
     n = x.shape[0]
-    _on_cuda("spatial_hash_logluv", dev, n)
+    on_cuda("spatial_hash_logluv", dev, n, "keys")
     if x.dtype == torch.int32:
-        hdda._check("words", x, torch.int32, (n,), dev)
+        check("words", x, torch.int32, (n,), dev)
         out = torch.empty((n, 3), dtype=torch.float32, device=dev)
         args = _LogLuvArgs(words=x.data_ptr(), rgb=out.data_ptr(),
                            out_words=None, n=n, luv=_logluv_constants())
     else:
-        hdda._check("rgb", x, torch.float32, (n, 3), dev)
+        check("rgb", x, torch.float32, (n, 3), dev)
         out = torch.empty(n, dtype=torch.int32, device=dev)
         args = _LogLuvArgs(words=None, rgb=x.data_ptr(),
                            out_words=out.data_ptr(), n=n,
                            luv=_logluv_constants())
-    _launch("spatial_hash_logluv_launch", args, dev, "logluv")
+    LIBRARY.launch("spatial_hash_logluv_launch", ctypes.addressof(args),
+                   device=dev, count="logluv")
     return out

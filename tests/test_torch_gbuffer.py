@@ -1,21 +1,15 @@
 """The primary stage's G-buffer kernels (``csrc/gbuffer.cu``, bound by
 ``ops/gbuffer.py``): their entry points ``camera.primary_rays`` and
 ``shade.resolve_primary`` run the plain versions for CPU tensors and launch
-nothing (the frame's rays and G-buffer as before); the library is built
-with the HDDA kernel's flags; no kernel name holds ``hdda``. The tests
-marked ``gpu`` hold both kernels, and a frame through them, equal to the
-plain versions on the card (``chip_smoke.py``'s phase 25 at small
-shapes); run them there with ``--noconftest``."""
-
-import hashlib
-import importlib.util
-import os
-import re
-import subprocess
-import sys
+nothing (the frame's rays and G-buffer as before). The library's build,
+names and bindings are ``tests/test_torch_csrc.py``'s. The tests marked
+``gpu`` hold both kernels, and a frame through them, equal to the plain
+versions on the card (``chip_smoke.py``'s phase 25 at small shapes); run
+them there with ``--noconftest``."""
 
 import pytest
 import torch
+from torch_card import card, chip_smoke  # noqa: F401
 
 from dust_tpu_torch import bench, config
 from dust_tpu_torch.ops import camera as cameralib
@@ -28,7 +22,6 @@ from dust_tpu_torch.render.scene import build_device_scene
 from dust_tpu_torch.vox import procgen
 from dust_tpu_torch.vox.loader import load_vox_scene
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EYE, TARGET = (26.0, 14.0, 32.0), (4.0, -4.0, 0.0)
 
 
@@ -117,116 +110,24 @@ def test_frame_on_the_cpu_launches_nothing(teapot):
     bn = load_blue_noise("cpu")
     state = pipeline.make_frame_state(settings, teapot, "cpu")
     before = _launches()
-    lib = gbuffer._LIB
+    handle = gbuffer.LIBRARY.handle
     img, aux, _ = pipeline.render_frame(
         teapot, state, _camera(128, 16),
         skylib.bake_sky(settings.sunlight, "cpu"), bn.unitvec3_cosine,
         bn.scalar, settings)
     assert img.shape == (16, 128, 3) and bool(torch.isfinite(img).all())
     assert _launches() == before
-    assert gbuffer._LIB is lib
-
-
-def test_wrappers_launch_only_on_cuda_tensors(teapot):
-    """Called with CPU tensors, the launch wrappers raise: the entry
-    points take the plain version there, nothing falls back."""
-    cam = _camera(128, 8)
-    o, d = cameralib.primary_rays(cam, 128, 8, True)
-    res = hdda.trace_scene(teapot, o, d, cam.near, cam.far, "precise")
-    with pytest.raises(ValueError, match="unsupported device"):
-        gbuffer.rays(cam, 128, 8, True, 0, 1024)
-    with pytest.raises(ValueError, match="unsupported device"):
-        gbuffer.resolve(teapot, res, o, d)
-
-
-def test_no_kernel_name_holds_hdda():
-    """The benchmark counts every kernel whose name holds ``hdda`` as the
-    traversal's; the G-buffer kernels' time is the glue's."""
-    src = open(os.path.join(REPO, "dust_tpu_torch", "csrc",
-                            "gbuffer.cu")).read()
-    names = re.findall(r"__global__\s+void\s+"
-                       r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
-    assert sorted(names) == ["gbuffer_resolve_kernel", "primary_rays_kernel"]
-    assert not [n for n in names if "hdda" in n.lower()]
-
-
-def test_built_with_the_hdda_flags(tmp_path, monkeypatch):
-    """``gbuffer.build_library`` runs nvcc with ``hdda.NVCC_FLAGS``
-    (``-fmad=false`` among them) on ``csrc/gbuffer.cu`` into
-    ``libgbuffer_<hash>.so``, once; the HDDA library keeps its name."""
-    cmds = []
-
-    def fake_run(cmd, **kw):
-        cmds.append(cmd)
-        return subprocess.CompletedProcess(cmd, 0, "", "")
-
-    monkeypatch.setattr(hdda, "_BUILD_DIR", tmp_path)
-    monkeypatch.setattr(hdda, "_nvcc", lambda source=None: "/fake/nvcc")
-    monkeypatch.setattr(hdda.subprocess, "run", fake_run)
-    assert "-fmad=false" in hdda.NVCC_FLAGS
-    for module, stem in ((gbuffer, "gbuffer"), (hdda, "hdda")):
-        out = module.build_library()
-        src = module._SOURCE.read_bytes()
-        tag = hashlib.sha256(
-            src + " ".join(hdda.NVCC_FLAGS).encode()).hexdigest()[:16]
-        assert out == tmp_path / f"lib{stem}_{tag}.so" and out.exists()
-        cmd = cmds[-1]
-        assert cmd[0] == "/fake/nvcc"
-        assert cmd[1:1 + len(hdda.NVCC_FLAGS)] == hdda.NVCC_FLAGS
-        assert cmd[-1] == str(module._SOURCE)
-        assert module.build_library() == out       # cached: no second run
-    assert len(cmds) == 2
-    assert gbuffer._SOURCE.name == "gbuffer.cu"
-
-
-def test_no_compiler_raises_and_leaves_nothing(tmp_path, monkeypatch):
-    monkeypatch.setattr(hdda, "_BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(hdda.shutil, "which", lambda name: None)
-    real_exists = os.path.exists
-    monkeypatch.setattr(hdda.os.path, "exists",
-                        lambda p: False if str(p).endswith("nvcc")
-                        else real_exists(p))
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        gbuffer.build_library()
-    left = tmp_path / "build"
-    assert not left.exists() or not list(left.iterdir())
-
-
-def test_importing_builds_nothing():
-    code = ("import dust_tpu_torch.render.pipeline\n"
-            "from dust_tpu_torch.ops import gbuffer\n"
-            "assert gbuffer._LIB is None\n"
-            "assert gbuffer.LAUNCHES == {'primary_rays': 0, "
-            "'gbuffer_resolve': 0}\n")
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                       env=dict(os.environ, PYTHONPATH=REPO),
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr
+    assert gbuffer.LIBRARY.handle is handle
 
 
 # ----------------------------------------------------------- on the card
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_for_gbuffer", os.path.join(REPO, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-@pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["tiled", "chunk", "raster", "stress"])
 def test_kernels_match_plain_on_the_card(card, case):
     """Both kernels equal to their plain versions in every field and bit
     (castle + teapot, or the 11-instance stress scene), at small shapes."""
-    smoke = _chip_smoke()
+    smoke = chip_smoke()
     ctx = smoke._setup(card, 256, 64, "stress" if case == "stress" else "gi")
     width, height, tiled, lo, hi, instances = {
         "tiled": (256, 64, True, 0, None, 2),
@@ -246,5 +147,5 @@ def test_kernels_match_plain_on_the_card(card, case):
 def test_frame_matches_plain_on_the_card(card):
     """A dense GI frame through the kernels and through the plain
     versions, from one state: output, aux and new state equal."""
-    smoke = _chip_smoke()
+    smoke = chip_smoke()
     smoke._gbuffer_frame_equal("gbuffer frame", smoke._setup(card, 256, 128))

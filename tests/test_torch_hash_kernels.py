@@ -4,30 +4,26 @@ kernels schedule them (1024-key blocks, their totals' tree, each key's
 fold) written out in torch, word for word equal to ``_scan``; the entry
 points ``probe_working_set`` and ``hash_insert`` on CPU tensors equal to
 the frozen plain code of ``benchmark/reference`` and launching nothing;
-the frame's spans ``dust.hash.probe`` and ``dust.hash.insert``; the
-kernels' names and build. Torch on one thread, at most 2^16 slots and
+the frame's spans ``dust.hash.probe`` and ``dust.hash.insert`` (the
+kernels' names, build and bindings are ``tests/test_torch_csrc.py``'s).
+Torch on one thread, at most 2^16 slots and
 4,096 keys. The tests marked ``gpu`` hold every kernel, and a 1080p hash
 frame through them, equal to the plain versions on the card at the
 castle-hash cell's sizes (``chip_smoke.py``'s phase 26); run them there
 with ``--noconftest``."""
 
 import dataclasses
-import hashlib
-import importlib.util
-import os
-import re
-import subprocess
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch_card import card, chip_smoke  # noqa: F401
 
 from benchmark.reference.ops import gi_cache as ref_gi
 from benchmark.reference.ops import spatial_hash as ref_sh
 from dust_tpu_torch import config
 from dust_tpu_torch.ops import camera as cameralib
 from dust_tpu_torch.ops import gi_cache as gilib
-from dust_tpu_torch.ops import hdda
 from dust_tpu_torch.ops import spatial_hash as sh
 from dust_tpu_torch.ops.noise import load_blue_noise
 from dust_tpu_torch.ops.sky import bake_sky
@@ -36,12 +32,7 @@ from dust_tpu_torch.render.scene import build_device_scene
 from dust_tpu_torch.vox import procgen
 from dust_tpu_torch.vox.loader import load_vox_scene
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EYE, TARGET = (26.0, 14.0, 32.0), (4.0, -4.0, 0.0)
-KERNELS = ["spatial_hash_apply_kernel", "spatial_hash_keys_kernel",
-           "spatial_hash_logluv_kernel", "spatial_hash_probe_kernel",
-           "spatial_hash_scan_blocks_kernel", "spatial_hash_scan_kernel",
-           "spatial_hash_scan_up_kernel"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -334,85 +325,16 @@ def test_hash_frame_opens_the_hash_spans(teapot):
     names = {s[2] for s in _frame_spans(teapot, "dense")}
     assert "dust.gather" in names
     assert not {"dust.hash.probe", "dust.hash.insert"} & names
-    assert sh._LIB is None       # the CPU frame built and loaded nothing
-
-
-# ------------------------------------------------ the kernels and the build
-
-def test_kernel_names_and_counter():
-    """Every kernel's name holds ``spatial_hash_`` (the benchmark's hash
-    metrics read those) and none ``hdda`` (the traversal's); the counter
-    has one entry per kernel."""
-    src = open(os.path.join(REPO, "dust_tpu_torch", "csrc",
-                            "spatial_hash.cu")).read()
-    names = re.findall(r"__global__\s+void\s+"
-                       r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
-    assert sorted(names) == KERNELS
-    assert "hdda" not in src.split("namespace {", 1)[1].lower()
-    assert sorted(f"spatial_hash_{k}_kernel" for k in sh.LAUNCHES) == KERNELS
-
-
-def test_wrappers_launch_only_on_cuda_tensors(teapot):
-    """Called with CPU tensors, the launch wrappers raise: the entry
-    points take the plain versions there, nothing falls back."""
-    h = sh.make_spatial_hash(1 << 8, "cpu")
-    centers, vleaf = pipeline._cell_enumeration(teapot)
-    with pytest.raises(ValueError, match="unsupported device"):
-        sh._probe_kernel(h, centers, vleaf, 4.0,
-                         gilib.albedo_words(teapot), None, 0, None)
-    q = torch.zeros((4, 3), dtype=torch.int32)
-    with pytest.raises(ValueError, match="unsupported device"):
-        sh._insert_kernels(h, q, q[:, 0], torch.zeros((4, 3)), 0, None,
-                           None)
-    with pytest.raises(ValueError, match="unsupported device"):
-        sh.logluv(torch.zeros(4, dtype=torch.int32))
-
-
-def test_built_with_the_hdda_flags(tmp_path, monkeypatch):
-    """``spatial_hash.build_library`` runs nvcc with ``hdda.NVCC_FLAGS``
-    (``-fmad=false`` among them) on ``csrc/spatial_hash.cu`` into
-    ``libspatial_hash_<hash>.so``, once."""
-    cmds = []
-
-    def fake_run(cmd, **kw):
-        cmds.append(cmd)
-        return subprocess.CompletedProcess(cmd, 0, "", "")
-
-    monkeypatch.setattr(hdda, "_BUILD_DIR", tmp_path)
-    monkeypatch.setattr(hdda, "_nvcc", lambda source=None: "/fake/nvcc")
-    monkeypatch.setattr(hdda.subprocess, "run", fake_run)
-    assert "-fmad=false" in hdda.NVCC_FLAGS
-    out = sh.build_library()
-    tag = hashlib.sha256(sh._SOURCE.read_bytes()
-                         + " ".join(hdda.NVCC_FLAGS).encode()).hexdigest()[:16]
-    assert out == tmp_path / f"libspatial_hash_{tag}.so" and out.exists()
-    assert cmds[-1][1:1 + len(hdda.NVCC_FLAGS)] == hdda.NVCC_FLAGS
-    assert cmds[-1][-1] == str(sh._SOURCE)
-    assert sh.build_library() == out and len(cmds) == 1
+    assert sh.LIBRARY.handle is None  # the CPU frame built, loaded nothing
 
 
 # ----------------------------------------------------------- on the card
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_for_hash", os.path.join(REPO, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-@pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
 
 @pytest.mark.gpu
 def test_codec_matches_plain_on_the_card(card):
     """The kernels' LogLuv decode on every 32-bit word and encode on 2^24
     colours, equal to packing.py's on the card."""
-    _chip_smoke()._hash_codec_equal(card)
+    chip_smoke()._hash_codec_equal(card)
 
 
 @pytest.mark.gpu
@@ -425,7 +347,7 @@ def test_insert_matches_plain_on_the_card(card, capacity, n, cap,
     """Three rounds of the insert's kernels equal to hash_insert_plain on
     the card: at the cell's size (2^25 slots, 345,600 keys) with repeats,
     evictions and the cap reached, and small."""
-    out = _chip_smoke()._hash_insert_case(f"insert {n}", card, capacity, n,
+    out = chip_smoke()._hash_insert_case(f"insert {n}", card, capacity, n,
                                           cap, all_valid=all_valid)
     assert out["evictions"] > 0
     if n == 720 * 480:
@@ -438,7 +360,7 @@ def test_probe_and_frame_match_plain_on_the_card(card):
     one launch of each kernel a frame; the working-set probe on its table
     equal to the plain version, whole and in rotating slices; a frame
     through the kernels equal to one through the plain versions."""
-    smoke = _chip_smoke()
+    smoke = chip_smoke()
     ctx = smoke._setup(card, 1920, 1080, "hash-reference")
     for k in sh.LAUNCHES:
         sh.LAUNCHES[k] = 0

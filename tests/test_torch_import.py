@@ -32,9 +32,9 @@ def test_imports_without_jax_triton_or_a_build():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'triton'))\n"
         "from dust_tpu_torch.ops import hdda\n"
-        "print(len(names), bad, hdda._LIB)\n"
+        "print(len(names), bad, hdda.LIBRARY.handle)\n"
         "assert not bad, bad\n"
-        "assert hdda._LIB is None\n"
+        "assert hdda.LIBRARY.handle is None\n"
         "assert len(names) >= 20, names\n")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stdout + r.stderr

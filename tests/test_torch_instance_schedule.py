@@ -10,9 +10,6 @@ interpret mode). They also check ``chip_smoke.py``'s byte count of an
 instance launch, which counts what each ray needs.
 """
 
-import importlib.util
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -23,9 +20,9 @@ from dust_tpu.ops import pallas_trace as pt
 from dust_tpu.render.scene import build_device_scene
 from dust_tpu_torch.ops import hdda
 from tests.torch_parity import camera_rays, port_scene, teapot_vox, tensor
+from torch_card import chip_smoke
 
 MODES = ("precise", "ao_threshold", "rough", "ao_fg")
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ODD = (float("nan"), float("inf"), -float("inf"), 1e30, -1e30, 0.0)
 
 
@@ -156,19 +153,11 @@ def test_empty_ranges_match_reference(scenes, mode):
             assert (b[:n_empty] == -1).all()
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_for_test", os.path.join(REPO, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("mode", MODES)
 def test_chip_smoke_instance_bytes(mode):
     """A hand-made launch of 1000 rays, 137 of them active (NaN bounds
     among them): 20 B a ray, plus 24 B an active ray (28 in ao_fg)."""
-    smoke = _chip_smoke()
+    smoke = chip_smoke()
     n, active = 1000, 137
     s_min = torch.full((n,), 5.0)
     s_stop = torch.full((n,), 1.0)
