@@ -183,7 +183,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernel's time (CUDA-graph replay) beside its floor (the bytes it
    counts a pixel at the memory rate) and the plain step's host-issued
    time; and phase 20's denoise figure again (profile_stages' post
-   stage).
+   stage);
+28. the final gather's kernels (dust_tpu_torch/csrc/gbuffer.cu:
+   gather_dirs_kernel, gather_resolve_kernel) held against their plain
+   versions (shade.gather_dirs_plain, shade.resolve_gather_plain) on the
+   card, every output and every bit: on the arguments of a frame of the
+   1920x1080 and 3840x2160 dense GI frames and of the 1920x1080 hash frame
+   (the enqueue's face, count and leaf centre included), and of 256x128
+   dense and hash frames under the debug view (debug_visualize_spatial_hash),
+   each also with the enqueue's outputs the other way, with the debug view
+   the other way, with each contribution_secondary_* flag off and both, on
+   the second quarter of the rays (a rank's chunk) and in raster order;
+   then on 16,384 made-up rays with every edge (primary misses, degenerate
+   normals, leaf rows past a cell cap, empty rows, -0.0 radiance and
+   direct light); 4 frames of each with one launch of each kernel a frame,
+   and one frame through the kernels and through the plain versions from
+   one state (output, aux and new state equal); at both dense sizes each
+   kernel's time (CUDA-graph replay) beside its floor (the bytes it needs:
+   a primary miss's and a hit's, and a final-gather hit's cache row, at
+   the memory rate) and the plain version's host-issued time.
 
 Every config is built and rendered through the bench module
 (dust_tpu_torch/bench.py). Before the result it prints each scene-kernel
@@ -286,6 +304,16 @@ DENOISE_TEMPORAL_BYTES = 124
 DENOISE_PASS_BYTES = 40 + 16
 DENOISE_LAST_PASS_BYTES = 40 + 12 + 12
 DENOISE_LAUNCHES = {"denoise_temporal": 1, "denoise_atrous": 3}
+# The final gather's kernels (csrc/gbuffer.cu, phase 28): the bytes each
+# needs (the source's header) for a primary miss and a primary hit, the
+# 32-byte sector of a final-gather hit's cache row, and the launches of a
+# GI frame. The directions: the hit and the outputs, and a hit's normal
+# (the noise layer stays in cache). The resolve: the hit and the outputs,
+# a miss's sky_out, a hit's two trace results, ray and direct.
+GATHER_DIRS_BYTES = dict(miss=1 + 16, hit=1 + 16 + 12)
+GATHER_RESOLVE_BYTES = dict(miss=1 + 28 + 12, hit=1 + 28 + 20 + 24 + 12)
+GATHER_ROW_BYTES = 32
+GATHER_LAUNCHES = {"gather_dirs": 1, "gather_resolve": 1}
 
 
 def _setup(device, width, height, config="gi", capacity=None, pool=None,
@@ -1835,7 +1863,7 @@ def _gbuffer_case(label, scene, cam, sky, width, height, tiled, lo=0,
     g = resolve()
     g_p = resolve_plain()
     _held_equal(f"{label} gbuffer_resolve", g, g_p)
-    expect = {k: v + 1 for k, v in before.items()}
+    expect = {k: v + (k in GBUFFER_LAUNCHES) for k, v in before.items()}
     if gbuffer.LAUNCHES != expect:
         raise SystemExit(f"{label}: G-buffer launches {gbuffer.LAUNCHES}, "
                          f"expected {expect}")
@@ -2546,6 +2574,267 @@ def _denoise_phase_27(dev, card):
     return out
 
 
+def _gather_edge_inputs(scene, n, dev, seed=0):
+    """The gather entry points' arguments on ``n`` made-up rays (a 256-wide
+    tiled image) of ``scene`` (on ``dev``), with every edge a frame can
+    meet: primary misses (a zero normal), degenerate normals (z < -0.99999,
+    some exactly -1), AO hits, final-gather misses and hits on every
+    instance, leaf rows past an instance's cell cap, cache rows without a
+    sample, with -0.0 halves and with -0.0 direct light. Returns
+    (gather_dirs' arguments, resolve_gather's less ``cells``)."""
+    import math
+
+    import torch
+    from dust_tpu_torch.config import RenderSettings
+    from dust_tpu_torch.ops import gi_cache as gilib
+    from dust_tpu_torch.ops import noise as noiselib
+    from dust_tpu_torch.ops import sky as skylib
+    from dust_tpu_torch.ops.fp import as_i32, f16_bits
+    from dust_tpu_torch.ops.traverse import TraceResult
+
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g)
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
+
+    def unit(k):
+        v = torch.randn(k, 3, generator=g)
+        return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+    settings = RenderSettings()
+    normal = unit(n)
+    normal[::16] = torch.tensor([0.0, 0.0, -1.0])
+    normal[8::16] = torch.tensor([3e-3, 0.0, -math.sqrt(1.0 - 9e-6)])
+    hit = rand(n) > 0.15
+    normal[~hit] = 0.0
+    bn = noiselib.load_blue_noise(dev).unitvec3_cosine
+    dirs = (normal.to(dev), hit.to(dev), bn, 37, (7, 183), 28011, 256,
+            n // 256, True, 0, n, settings.ambient_occlusion_threshold)
+
+    n_inst = scene.num_instances
+    _bases, caps, _ = gilib.cell_layout(scene)
+    fg_inst = randint(-1, n_inst, n)
+    fg_row = torch.where(fg_inst >= 0, randint(0, max(caps) + 64, n), -1)
+    fg_t = torch.where(fg_inst >= 0, rand(n) * 60.0 + 0.5, float("inf"))
+    ao_inst = torch.where(rand(n) > 0.75, randint(0, n_inst, n), -1)
+    ao_t = torch.where(ao_inst >= 0, rand(n) * 0.4 + 0.1, float("inf"))
+    minus = torch.full((n,), -1, dtype=torch.int32)
+    fg = TraceResult(fg_t, fg_inst.int(), fg_row.int(), minus)
+    ao = TraceResult(ao_t, ao_inst.int(), minus.clone(), minus.clone())
+    hit_loc = rand(n, 3) * 120.0 - 10.0
+    gi_dir = unit(n)
+    gi_dir[5::11] = torch.tensor([0.0, 1.0, 0.0])
+    direct = torch.randn(n, 3, generator=g) * 2.0
+    direct[::13] = -0.0
+    sky_out = rand(n, 3) * 3.0
+
+    rows = 6 * gilib.dense_cells(scene)
+    rad = (torch.randn(rows, 3, generator=g) * 4.0).abs() * (
+        rand(rows, 1) > 0.1)
+    half = f16_bits(rad)
+    half[::5] = 0x8000
+    count = torch.where(rand(rows) > 0.3, randint(1, 405, rows), 0).long()
+    w0 = half[:, 0] | (half[:, 1] << 16)
+    w1 = half[:, 2] | (count << 16)
+    w2 = torch.randint(0, 1 << 32, (rows,), generator=g)
+    cache = gilib.DenseGICache(table=torch.stack(
+        [as_i32(w0), as_i32(w1), as_i32(w2)], dim=-1).to(dev))
+    sky = skylib.bake_sky(settings.sunlight, dev)
+    resolve = (scene, *(TraceResult(*(x.to(dev) for x in r))
+                        for r in (fg, ao)),
+               *(x.to(dev) for x in (hit_loc, gi_dir, hit, direct, sky_out)),
+               cache, sky, True, True)
+    return dirs, resolve
+
+
+def _gather_inputs(ctx, frame):
+    """The arguments of the gather's two entry points in frame ``frame``
+    of ctx (carrying its state): (gather_dirs' positional arguments,
+    resolve_gather's less its keywords, its ``cells``, its
+    ``debug_illum``)."""
+    from dust_tpu_torch.ops import shade
+
+    calls = {}
+
+    def render():
+        return _recording(shade, "resolve_gather",
+                          lambda a, kw: calls.setdefault("resolve", (a, kw)),
+                          lambda: _render(ctx, frame, ctx["state"]))
+
+    _out, ctx["state"] = _recording(
+        shade, "gather_dirs", lambda a, kw: calls.setdefault("dirs", a),
+        render)
+    (a, kw) = calls["resolve"]
+    return calls["dirs"], a, kw["cells"], kw["debug_illum"]
+
+
+def _gather_held(label, dirs, resolve, cells, debug_illum=None):
+    """Both gather kernels against their plain versions
+    (:func:`_held_equal`: every output, every bit) on one set of
+    arguments, one launch of each counted."""
+    from dust_tpu_torch.ops import gbuffer, shade
+
+    before = dict(gbuffer.LAUNCHES)
+    gi_dir, t_max = shade.gather_dirs(*dirs)
+    gi_dir_p, t_max_p = shade.gather_dirs_plain(*dirs)
+    _held_equal(f"{label} gather_dirs", dict(gi_dir=gi_dir, ao_t_max=t_max),
+                dict(gi_dir=gi_dir_p, ao_t_max=t_max_p))
+    out = shade.resolve_gather(*resolve, cells=cells, debug_illum=debug_illum)
+    out_p = shade.resolve_gather_plain(*resolve, cells=cells,
+                                       debug_illum=debug_illum)
+    if list(out) != list(out_p):
+        raise SystemExit(f"{label}: outputs {list(out)}, plain {list(out_p)}")
+    _held_equal(f"{label} gather_resolve", out, out_p)
+    expect = {k: v + (k in GATHER_LAUNCHES) for k, v in before.items()}
+    if gbuffer.LAUNCHES != expect:
+        raise SystemExit(f"{label}: launches {gbuffer.LAUNCHES}, expected "
+                         f"{expect}")
+
+
+def _gather_variants(label, dirs, resolve, cells, debug_illum=None):
+    """:func:`_gather_held` on the arguments as given, with the other
+    ``cells``, with the debug view (made-up cached radiance with -0.0) or
+    without it, with each ``contribution_secondary_*`` flag off and both,
+    on the second quarter of the rays (a rank's chunk of the sharded
+    frame) and in raster order."""
+    import torch
+
+    _gather_held(label, dirs, resolve, cells, debug_illum)
+    _gather_held(f"{label} cells={not cells}", dirs, resolve, not cells)
+    if debug_illum is None:
+        n = dirs[0].shape[0]
+        debug_illum = torch.rand(
+            n, 3, generator=torch.Generator().manual_seed(n)) * 4.0
+        debug_illum[::7] = -0.0
+        debug_illum = debug_illum.to(dirs[0].device)
+    else:
+        debug_illum = None
+    _gather_held(f"{label} debug view {debug_illum is not None}", dirs,
+                 resolve, cells, debug_illum)
+    for bounce, sky in ((False, True), (True, False), (False, False)):
+        _gather_held(f"{label} bounce={bounce} skylight={sky}", dirs,
+                     (*resolve[:10], bounce, sky), cells)
+    n = dirs[0].shape[0]
+    lo, hi = n // 4, n // 2
+    chunk = (*(x[lo:hi] for x in dirs[:2]), *dirs[2:9], lo, hi, dirs[11])
+    scene, fg, ao, *per_ray = resolve[:8]
+    rest = resolve[8:]
+    _gather_held(f"{label} rays [{lo}, {hi})", chunk,
+                 (scene, *(type(r)(*(x[lo:hi] for x in r)) for r in (fg, ao)),
+                  *(x[lo:hi] for x in per_ray), *rest), cells)
+    _gather_held(f"{label} raster", (*dirs[:8], False, *dirs[9:]), resolve,
+                 cells)
+
+
+def _gather_case(label, ctx, frame, card="", timed=False):
+    """Phase 28 on frame ``frame`` of ctx (rendered, carrying its state):
+    both gather kernels held against their plain versions on the frame's
+    own arguments (:func:`_gather_variants`); the frame must have
+    final-gather hits and misses and AO hits. With ``timed``, each
+    kernel's device time (CUDA-graph replay) beside its floor and its
+    plain version's time. Returns a dict of numbers."""
+    import ctypes
+
+    import torch
+    from dust_tpu_torch.ops import gbuffer, shade
+
+    dirs, resolve, cells, debug_illum = _gather_inputs(ctx, frame)
+    _gather_variants(label, dirs, resolve, cells, debug_illum)
+    _scene, fg, ao, _o, _d, hit = resolve[:6]
+    fg_hit = int((hit & ~(ao.inst >= 0) & (fg.inst >= 0)).sum())
+    out = dict(rays=int(hit.shape[0]), hits=int(hit.sum()),
+               ao_hits=int((hit & (ao.inst >= 0)).sum()), fg_hits=fg_hit)
+    print(f"{label}: both gather kernels equal to their plain versions in "
+          f"every output ({'with' if cells else 'without'} the enqueue's; "
+          f"and the other way, the debug view the other way, each "
+          f"contribution off, a chunk, raster order); {out}")
+    if not (fg_hit and out["ao_hits"] and out["hits"] > fg_hit):
+        raise SystemExit(f"{label}: want AO hits, final-gather hits and "
+                         "misses")
+    if not timed:
+        return out
+    m, hits = out["rays"], out["hits"]
+    dev = hit.device
+    args_d, keep_d = gbuffer._dirs_args(*dirs)
+    args_r, keep_r = gbuffer._gather_args(*resolve, cells, debug_illum)
+
+    def needed(per_ray):
+        return per_ray["miss"] * (m - hits) + per_ray["hit"] * hits
+
+    for name, entry, args, plain, nbytes in (
+            ("gather_dirs", "gather_dirs_launch", args_d,
+             lambda: shade.gather_dirs_plain(*dirs),
+             needed(GATHER_DIRS_BYTES)),
+            ("gather_resolve", "gather_resolve_launch", args_r,
+             lambda: shade.resolve_gather_plain(
+                 *resolve, cells=cells, debug_illum=debug_illum),
+             needed(GATHER_RESOLVE_BYTES) + GATHER_ROW_BYTES * fg_hit)):
+        ms = _kernel_ms(lambda: gbuffer.LIBRARY.launch(
+            entry, ctypes.addressof(args), device=dev, count=name))
+        plain_ms = _ms(plain, 3)
+        bound = 1e3 * nbytes / MEM_BYTES_PER_S
+        print(f"{label} {name}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({nbytes / m:.1f} B a ray at 3.35 TB/s, "
+              f"{100.0 * bound / ms:.1f}% of it); plain {plain_ms:.3f} ms "
+              f"host-issued [{card}]")
+        out[name] = dict(ms=ms, bound_ms=bound, bytes_per_ray=nbytes / m,
+                         plain_ms=plain_ms)
+    del args_d, keep_d, args_r, keep_r
+    torch.cuda.synchronize()
+    return out
+
+
+def _gather_edges(label, scene, dev, seed=0):
+    """Phase 28's made-up rays (:func:`_gather_edge_inputs`) through
+    :func:`_gather_variants`."""
+    dirs, resolve = _gather_edge_inputs(scene, 1 << 14, dev, seed)
+    _gather_variants(label, dirs, resolve, False)
+    print(f"{label}: both gather kernels equal to their plain versions on "
+          f"the made-up edges (seed {seed})")
+
+
+def _gather_frame_equal(label, ctx, frame):
+    """:func:`_frame_equal` of the gather kernels' entry points."""
+    from dust_tpu_torch.ops import shade
+
+    return _frame_equal(label, "gather", ctx, frame, [
+        (shade, "gather_dirs", shade.gather_dirs_plain),
+        (shade, "resolve_gather", shade.resolve_gather_plain)])
+
+
+def _gather_phase_28(dev, card):
+    """28. The final gather's kernels held and timed (module docstring); a
+    dict of the phase's numbers."""
+    from dust_tpu_torch.ops import gbuffer
+
+    out = {}
+    for config, width, height, timed, debug in (
+            ("gi", WIDTH, HEIGHT, True, False),
+            ("gi-4k", WIDTH_4K, HEIGHT_4K, True, False),
+            ("hash-reference", WIDTH, HEIGHT, False, False),
+            ("gi", 256, 128, False, True),
+            ("hash-reference", 256, 128, False, True)):
+        ctx = _setup(dev, width, height, config,
+                     debug_visualize_spatial_hash=debug)
+        for k in gbuffer.LAUNCHES:
+            gbuffer.LAUNCHES[k] = 0
+        _frames(ctx, FRAMES)
+        _check_launches(gbuffer.LAUNCHES,
+                        {**GBUFFER_LAUNCHES, **GATHER_LAUNCHES}, FRAMES,
+                        f"{config} G-buffer and gather")
+        label = f"gather {config} {width}x{height}" + (
+            " debug view" if debug else "")
+        out[label] = _gather_case(label, ctx, FRAMES, card=card, timed=timed)
+        _gather_frame_equal(label, ctx, FRAMES + 1)
+        if config == "gi" and not debug:
+            _gather_edges("gather edges", ctx["scene"], dev)
+        del ctx
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2609,6 +2898,7 @@ def main() -> int:
     out, times = _timed_frames(ctx, FRAMES, first=1)
     _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, FRAMES, "hdda_scene")
     _check_launches(gbuffer.LAUNCHES, GBUFFER_LAUNCHES, FRAMES, "G-buffer")
+    _check_launches(gbuffer.LAUNCHES, GATHER_LAUNCHES, FRAMES, "gather")
     for k in kernels:
         k["launches"] = hdda.LAUNCHES[k["name"][len("hdda_scene<"):-1]]
     _report_frame("castle+teapot dense GI", ctx, out, times, card)
@@ -2811,6 +3101,19 @@ def main() -> int:
             launches=FRAMES * DENOISE_LAUNCHES[name], max_abs_err=0.0,
             **by_shape["1080p"], library_ms=None, gi_4k=by_shape["4K"]))
 
+    # ---- 28. the final gather's kernels -----------------------------------
+    gather_held = _gather_phase_28(dev, card)
+    for name in GATHER_LAUNCHES:
+        h = gather_held[f"gather gi {WIDTH}x{HEIGHT}"][name]
+        h4 = gather_held[f"gather gi-4k {WIDTH_4K}x{HEIGHT_4K}"][name]
+        kernels.append(dict(
+            name=f"{name}_kernel", route="cuda",
+            source="dust_tpu_torch/csrc/gbuffer.cu", replaces=None,
+            launches=FRAMES, max_abs_err=0.0, ms=h["ms"],
+            plain_ms=h["plain_ms"], bound_ms=h["bound_ms"], bound_by="bytes",
+            library_ms=None, gi_4k=dict(ms=h4["ms"], bound_ms=h4["bound_ms"],
+                                        bound_by="bytes")))
+
     for k in kernels:
         if k["name"].startswith("hdda_scene<"):
             mode = k["name"][len("hdda_scene<"):-1]
@@ -2841,7 +3144,7 @@ def main() -> int:
                       "edits": edit_times, "flythrough_sharded": sharded,
                       "tools": tools, "native": native_build,
                       "gbuffer": gbuffer_held, "spatial_hash": hash_held,
-                      "denoise": denoise_held}))
+                      "denoise": denoise_held, "gather": gather_held}))
     for mode in hdda.MODES:
         h = stress_held[mode]
         print(f"stress hdda_scene<{mode}>: {h['ms']:.3f} ms per launch at "

@@ -17,7 +17,7 @@ from dust_tpu_torch.ops import gbuffer
 
 __all__ = ["CameraSettings", "camera_settings", "camera_ray_dirs", "look_at",
            "perspective_infinite_reverse", "primary_rays",
-           "primary_rays_plain"]
+           "primary_rays_plain", "check_ray_range"]
 
 
 class CameraSettings(NamedTuple):
@@ -98,6 +98,18 @@ def primary_rays_plain(cam: CameraSettings, width: int, height: int,
             d.reshape(width * height, 3)[lo:hi])
 
 
+def check_ray_range(width: int, height: int, tiled: bool, lo: int,
+                    hi: int):
+    """Raise ``ValueError`` unless ``[lo, hi)`` are rays of the image and,
+    with ``tiled``, the image divides into 8×128-pixel tiles."""
+    n = width * height
+    if not 0 <= lo <= hi <= n:
+        raise ValueError(f"rays [{lo}, {hi}) of {n}")
+    if tiled and (height % 8 or width % 128):
+        raise ValueError(f"{width}x{height} does not divide into 8x128 "
+                         "tiles")
+
+
 def primary_rays(cam: CameraSettings, width: int, height: int, tiled: bool,
                  lo: int = 0, hi: int | None = None):
     """The camera rays ``[lo, hi)`` of the image (default: all of them) in
@@ -108,13 +120,8 @@ def primary_rays(cam: CameraSettings, width: int, height: int, tiled: bool,
 
     CPU tensors run :func:`primary_rays_plain`; CUDA tensors launch
     ``primary_rays_kernel`` (:mod:`dust_tpu_torch.ops.gbuffer`)."""
-    n = width * height
-    hi = n if hi is None else hi
-    if not 0 <= lo <= hi <= n:
-        raise ValueError(f"rays [{lo}, {hi}) of {n}")
-    if tiled and (height % 8 or width % 128):
-        raise ValueError(f"{width}x{height} does not divide into 8x128 "
-                         "tiles")
+    hi = width * height if hi is None else hi
+    check_ray_range(width, height, tiled, lo, hi)
     if cam.position.device.type == "cpu":
         return primary_rays_plain(cam, width, height, tiled, lo, hi)
     return gbuffer.rays(cam, width, height, tiled, lo, hi)

@@ -1,20 +1,30 @@
 """Hit-attribute resolution (port of :mod:`dust_tpu.ops.shade`): the
 primary G-buffer from one voxel-row gather, the spatial-hash key of a
 hit's leaf, and the analytic entry face and leaf centre of rough
-hits."""
+hits; and the final gather around its two traces: the gather rays'
+directions before them, and after them the GI-cache read at the rough
+hits, the bounce, the sky, and the frame's radiance, hit distance and
+indirect light."""
 
 from __future__ import annotations
 
 import torch
 
 from dust_tpu_torch.ops import gbuffer
+from dust_tpu_torch.ops import gi_cache as gilib
+from dust_tpu_torch.ops import noise as noiselib
 from dust_tpu_torch.ops import packing as pk
+from dust_tpu_torch.ops import sky as skylib
+from dust_tpu_torch.ops.camera import check_ray_range
 from dust_tpu_torch.ops.fp import fma
 from dust_tpu_torch.ops.sky import primary_sky
+from dust_tpu_torch.utils import color as colorlib
 from dust_tpu_torch.vox.geometry import unpack_r10g10b10a2
 
 __all__ = ["resolve_hits", "resolve_primary", "resolve_hits_plain",
-           "leaf_attributes", "entry_face", "entry_leaf_center"]
+           "leaf_attributes", "entry_face", "entry_leaf_center",
+           "gather_dirs", "gather_dirs_plain", "resolve_gather",
+           "resolve_gather_plain"]
 
 
 def _inst_xform(arrs, inst, p, with_translation: bool):
@@ -183,3 +193,102 @@ def entry_face(scene, res, origin_w, dir_w):
     n_obj = -torch.sign(d_obj) * axes
     n_world = _inst_xform(scene.obj_to_world, inst, n_obj, False)
     return pk.normal_to_face_id(pk.cubed_normalize(n_world))
+
+
+def gather_dirs(normal, hit, bn_cosine, layer: int, offset, rand: int,
+                width: int, height: int, tiled: bool, lo: int, hi: int,
+                ao_threshold: float):
+    """The final gather's rays ``[lo, hi)`` of the image, in the trace's
+    order (:func:`~dust_tpu_torch.ops.camera.primary_rays`' ``tiled``):
+    (gi_dir (m, 3), ao_t_max (m,)). ``gi_dir`` is the cosine blue-noise
+    sample of the ray's pixel (:func:`~dust_tpu_torch.ops.noise.bn_fetch`
+    of ``bn_cosine`` at ``layer``, ``offset`` and ``rand``) rotated into
+    the frame of its G-buffer ``normal``, or (0, 1, 0) where the primary
+    ray missed; ``ao_t_max`` is ``ao_threshold`` on a hit, -1 on a miss.
+
+    CPU tensors run :func:`gather_dirs_plain`; CUDA tensors launch
+    ``gather_dirs_kernel`` (:mod:`dust_tpu_torch.ops.gbuffer`)."""
+    check_ray_range(width, height, tiled, lo, hi)
+    if normal.device.type == "cpu":
+        return gather_dirs_plain(normal, hit, bn_cosine, layer, offset,
+                                 rand, width, height, tiled, lo, hi,
+                                 ao_threshold)
+    return gbuffer.dirs(normal, hit, bn_cosine, layer, offset, rand, width,
+                        height, tiled, lo, hi, ao_threshold)
+
+
+def gather_dirs_plain(normal, hit, bn_cosine, layer, offset, rand, width,
+                      height, tiled, lo, hi, ao_threshold):
+    """The plain version of :func:`gather_dirs`."""
+    img = noiselib.bn_fetch(bn_cosine, layer, offset, rand, height, width)
+    if tiled:
+        img = torch.movedim(img.reshape(height // 8, 8, width // 128, 128,
+                                        img.shape[-1]), 2, 0)
+    cos_sample = img.reshape(width * height, -1)[lo:hi] * 2.0 - 1.0
+    gi_dir = pk.rotate_vector_by_normal(normal, cos_sample)
+    gi_dir = torch.where(hit[:, None], gi_dir,
+                         gi_dir.new_tensor([0.0, 1.0, 0.0]))
+    return gi_dir, torch.where(hit, ao_threshold, -1.0).float()
+
+
+def resolve_gather(scene, fg, ao, hit_loc, gi_dir, hit, direct, sky_out,
+                   cache, sky_state, bounce: bool, skylight: bool,
+                   cells: bool = False, debug_illum=None) -> dict:
+    """What the final gather yields, from the AO trace ``ao`` and the
+    final-gather trace ``fg`` of the gather rays (``hit_loc``,
+    ``gi_dir``): a dict of ``radiance`` (m, 3), the primary hit's
+    ``direct`` light plus ``illum`` where ``hit``, else ``sky_out``;
+    ``hitdist`` (m,), the AO hit's or else the final-gather hit's t (0
+    when neither hit, 100000 on a primary miss); and ``illum`` (m, 3),
+    the indirect light: with ``bounce``, the radiance that the dense GI
+    ``cache`` (a :class:`~dust_tpu_torch.ops.gi_cache.DenseGICache`)
+    holds at the final-gather hit's entry face, bounced off its leaf's
+    albedo; with ``skylight``, the sky of ``sky_state`` where the gather
+    ray leaves the scene. With ``cells`` (the hash frame's enqueue), also
+    ``face`` (m,) int32, the hit's entry face, ``count`` (m,), the cached
+    row's samples, and ``center`` (m, 3), its leaf's world centre.
+    ``debug_illum`` (m, 3) replaces ``illum`` where ``hit``
+    (``debug_visualize_spatial_hash``).
+
+    CPU tensors run :func:`resolve_gather_plain`; CUDA tensors launch
+    ``gather_resolve_kernel`` (:mod:`dust_tpu_torch.ops.gbuffer`)."""
+    if hit_loc.device.type == "cpu":
+        return resolve_gather_plain(scene, fg, ao, hit_loc, gi_dir, hit,
+                                    direct, sky_out, cache, sky_state,
+                                    bounce, skylight, cells, debug_illum)
+    return gbuffer.gather(scene, fg, ao, hit_loc, gi_dir, hit, direct,
+                          sky_out, cache, sky_state, bounce, skylight, cells,
+                          debug_illum)
+
+
+def resolve_gather_plain(scene, fg, ao, hit_loc, gi_dir, hit, direct,
+                         sky_out, cache, sky_state, bounce, skylight,
+                         cells=False, debug_illum=None):
+    """The plain version of :func:`resolve_gather`."""
+    ao_hit = ao.hit
+    fg_active = hit & ~ao_hit
+    fg_hit = fg_active & fg.hit
+    face = entry_face(scene, fg, hit_loc, gi_dir)
+    _found, cached, cnt, alb_u32 = gilib.dense_get(
+        cache, gilib.dense_index(scene, fg.inst, fg.row, face), fg_hit)
+    albedo_lin = colorlib.srgb_eotf(unpack_r10g10b10a2(alb_u32)[:, :3])
+    indirect = colorlib.srgb_to_acescg(
+        colorlib.acescg_to_srgb(cached) * albedo_lin)
+    illum = torch.zeros((hit.shape[0], 3), device=hit.device)
+    if bounce:
+        illum = illum + torch.where(fg_hit[:, None], indirect, 0.0)
+    if skylight:
+        illum = illum + torch.where(
+            (fg_active & ~fg.hit)[:, None],
+            skylib.sky_radiance(sky_state, gi_dir), 0.0)
+    if debug_illum is not None:
+        illum = torch.where(hit[:, None], debug_illum, illum)
+    hitdist = torch.where(ao_hit, ao.t, 0.0)
+    hitdist = torch.where(fg_hit, fg.t, hitdist)
+    radiance = torch.where(hit[:, None], direct + illum, sky_out)
+    hitdist = torch.where(hit, hitdist, 100000.0)
+    out = dict(radiance=radiance, hitdist=hitdist, illum=illum)
+    if cells:
+        out.update(face=face, count=cnt,
+                   center=entry_leaf_center(scene, fg, hit_loc, gi_dir))
+    return out

@@ -422,19 +422,14 @@ def _render_frame(scene, state, cam, sky_state, bn_cosine, bn_scalar,
     if gi:
         # ---------------------------------------------- 3. AO + final gather
         with trace_annotation("dust.gather"):
-            cos_sample = to_tiles(noiselib.bn_fetch(
-                bn_cosine, layer, (7, 183), rand, H, W))[lo:hi] * 2.0 - 1.0
-            gi_dir = pk.rotate_vector_by_normal(normal, cos_sample)
-            gi_dir = torch.where(hit[:, None], gi_dir,
-                                 gi_dir.new_tensor([0.0, 1.0, 0.0]))
             thr = settings.ambient_occlusion_threshold
-            ao = trace(hit_loc, gi_dir, 0.1, fill(hit, thr, -1.0),
-                       "ao_threshold")
-            ao_hit = ao.hit
-            fg_active = hit & ~ao_hit
+            gi_dir, ao_t_max = shade.gather_dirs(
+                normal, hit, bn_cosine, layer, (7, 183), rand, W, H,
+                _tiled(H, W, pallas), lo, hi, thr)
+            ao = trace(hit_loc, gi_dir, 0.1, ao_t_max, "ao_threshold")
+            fg_active = hit & ~ao.hit
             fg = trace(hit_loc, gi_dir, thr,
                        torch.where(fg_active, cam.far, -1.0), "rough")
-            fg_hit = fg_active & fg.hit
 
             if dense:
                 gi_reads, new_gi_ws = state.gi, state.gi_ws
@@ -447,38 +442,7 @@ def _render_frame(scene, state, cam, sky_state, bn_cosine, bn_scalar,
                 with trace_annotation("dust.hash.probe"):
                     gi_reads, new_gi_ws = _working_set(scene, state, settings,
                                                        frame_index)
-            face = shade.entry_face(scene, fg, hit_loc, gi_dir)
-            _found, cached, cnt, alb_u32 = gilib.dense_get(
-                gi_reads, gilib.dense_index(scene, fg.inst, fg.row, face),
-                fg_hit)
-            albedo_lin = colorlib.srgb_eotf(unpack_r10g10b10a2(alb_u32)[:, :3])
-            indirect = colorlib.srgb_to_acescg(
-                colorlib.acescg_to_srgb(cached) * albedo_lin)
-            illum = torch.zeros((m, 3), device=dev)
-            if settings.contribution_secondary_spatial_hash:
-                illum = illum + torch.where(fg_hit[:, None], indirect, 0.0)
-            if settings.contribution_secondary_skylight:
-                illum = illum + torch.where(
-                    (fg_active & ~fg.hit)[:, None],
-                    skylib.sky_radiance(sky_state, gi_dir), 0.0)
-
-            surfels = state.surfels
-            if not dense:
-                # Stochastic enqueue of final-gather hit cells: pool slot =
-                # ray index % pool size, the lowest index wins.
-                p_sched = 1.0 / (cnt + 2.0)
-                noise0 = to_tiles(noiselib.bn_fetch(
-                    bn_scalar, layer, (34, 21), rand, H, W))[lo:hi, 0]
-                enqueue = fg_hit & (noise0 > p_sched)
-                center_fg = shade.entry_leaf_center(scene, fg, hit_loc, gi_dir)
-                rows = torch.cat([center_fg, face.float()[:, None]], dim=-1)
-                if sharded:
-                    # The pool is replicated: every rank enqueues every
-                    # rank's candidates, in the global ray order.
-                    both = parallel.gather_rows(mesh, torch.cat(
-                        [enqueue.float()[:, None], rows], dim=-1), n)
-                    enqueue, rows = both[:, 0] > 0.0, both[:, 1:]
-                surfels = _pool_enqueue_mod(surfels, enqueue, rows)
+            dbg_rad = None
             if settings.debug_visualize_spatial_hash:
                 # Show the cache: the primary hit cell's cached radiance.
                 dbg = shade.leaf_attributes(scene, primary, origins, dirs,
@@ -491,12 +455,32 @@ def _render_frame(scene, state, cam, sky_state, bn_cosine, bn_scalar,
                 else:
                     _, dbg_rad, _ = sh.hash_get(state.gi, dbg["qpos"],
                                                 dbg["face"])
-                illum = torch.where(hit[:, None], dbg_rad, illum)
+            gathered = shade.resolve_gather(
+                scene, fg, ao, hit_loc, gi_dir, hit, direct, sky_out,
+                gi_reads, sky_state,
+                settings.contribution_secondary_spatial_hash,
+                settings.contribution_secondary_skylight, cells=not dense,
+                debug_illum=dbg_rad)
+            radiance_img = gathered["radiance"]
+            hitdist, illum = gathered["hitdist"], gathered["illum"]
 
-            hitdist = torch.where(ao_hit, ao.t, 0.0)
-            hitdist = torch.where(fg_hit, fg.t, hitdist)
-            radiance_img = torch.where(hit[:, None], direct + illum, sky_out)
-            hitdist = torch.where(hit, hitdist, 100000.0)
+            surfels = state.surfels
+            if not dense:
+                # Stochastic enqueue of final-gather hit cells: pool slot =
+                # ray index % pool size, the lowest index wins.
+                p_sched = 1.0 / (gathered["count"] + 2.0)
+                noise0 = to_tiles(noiselib.bn_fetch(
+                    bn_scalar, layer, (34, 21), rand, H, W))[lo:hi, 0]
+                enqueue = fg_active & fg.hit & (noise0 > p_sched)
+                rows = torch.cat([gathered["center"],
+                                  gathered["face"].float()[:, None]], dim=-1)
+                if sharded:
+                    # The pool is replicated: every rank enqueues every
+                    # rank's candidates, in the global ray order.
+                    both = parallel.gather_rows(mesh, torch.cat(
+                        [enqueue.float()[:, None], rows], dim=-1), n)
+                    enqueue, rows = both[:, 0] > 0.0, both[:, 1:]
+                surfels = _pool_enqueue_mod(surfels, enqueue, rows)
 
         # ---------------------------------------------- 4. surfel refresh
         with trace_annotation("dust.refresh"):

@@ -167,7 +167,8 @@ print(json.dumps(out))
 _MODES = dict.fromkeys(hdda.MODES, 0)
 COUNTERS = {
     "hdda": [_MODES, _MODES],
-    "gbuffer": [{"primary_rays": 0, "gbuffer_resolve": 0}],
+    "gbuffer": [{"primary_rays": 0, "gbuffer_resolve": 0, "gather_dirs": 0,
+                 "gather_resolve": 0}],
     "spatial_hash": [{"probe": 0, "keys": 0, "scan_up": 0, "scan_blocks": 0,
                       "scan": 0, "apply": 0, "logluv": 0}],
     "denoise": [{"denoise_temporal": 0, "denoise_atrous": 0}],
@@ -197,7 +198,8 @@ def test_importing_builds_and_loads_nothing(name, imported):
 
 KERNELS = {
     "hdda": ["hdda_instance_kernel", "hdda_kernel"],
-    "gbuffer": ["gbuffer_resolve_kernel", "primary_rays_kernel"],
+    "gbuffer": ["gather_dirs_kernel", "gather_resolve_kernel",
+                "gbuffer_resolve_kernel", "primary_rays_kernel"],
     "spatial_hash": ["spatial_hash_apply_kernel", "spatial_hash_keys_kernel",
                      "spatial_hash_logluv_kernel", "spatial_hash_probe_kernel",
                      "spatial_hash_scan_blocks_kernel",
@@ -268,6 +270,12 @@ OFF_CUDA = {
     "gbuffer.rays": lambda: gbuffer.rays(_cam(), 128, 8, True, 0, 1024),
     "gbuffer.resolve": lambda: gbuffer.resolve(None, None, _Z(4, 3),
                                                _Z(4, 3)),
+    "gbuffer.dirs": lambda: gbuffer.dirs(
+        _Z(4, 3), _Z(4, dtype=torch.bool), _Z(64, 128, 128, 3), 0, (7, 183),
+        0, 128, 8, True, 0, 4, 0.5),
+    "gbuffer.gather": lambda: gbuffer.gather(
+        None, None, None, _Z(4, 3), _Z(4, 3), _Z(4, dtype=torch.bool),
+        _Z(4, 3), _Z(4, 3), None, None, True, False, False),
     "spatial_hash.probe": lambda: sh._probe_kernel(
         sh.make_spatial_hash(1 << 8, "cpu"), _Z(4, 3),
         torch.ones(4, dtype=torch.bool), 4.0, _Z(24, dtype=torch.int32),
@@ -328,7 +336,9 @@ def _same_type(a, b):
     return a is b
 
 
-STRUCTURES = [("gbuffer", "_RaysArgs"), ("gbuffer", "_ResolveArgs"),
+STRUCTURES = [("gbuffer", "_RaysArgs"), ("gbuffer", "_SkyArgs"),
+              ("gbuffer", "_ResolveArgs"), ("gbuffer", "_GatherDirsArgs"),
+              ("gbuffer", "_CacheArgs"), ("gbuffer", "_GatherResolveArgs"),
               ("spatial_hash", "_LogLuv"), ("spatial_hash", "_ProbeArgs"),
               ("spatial_hash", "_InsertArgs"),
               ("spatial_hash", "_LogLuvArgs"),
