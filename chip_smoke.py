@@ -81,11 +81,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    1920x1080, dense GI): 10-frame runs, the better of two, with no
    edit, with a leaf edit every frame, and with splices staged off the
    render thread, then one forced rebuild (a slab of 4096 new leaves).
-   After each tier: the editor's tier, 6 scene-kernel launches per
-   frame, every tensor of the card's scene equal (torch.equal) to a CPU
-   editor's given the same edits, the dense GI albedo words equal to a
-   fresh cache of the edited scene, and the scene kernel equal to its
-   plain version on 65,536 of the frame's rays per mode; then one
+   After each tier: the editor's tier and edits.REFITS (a leaf refit
+   a frame, a splice a staged block, one rebuild, none with no edit),
+   6 scene-kernel launches per frame, every tensor of the card's scene
+   equal (torch.equal) to a CPU editor's given the same edits, the
+   dense GI albedo words equal to a fresh cache of the edited scene, and
+   the scene kernel equal to its plain version on 65,536 of the frame's
+   rays per mode; then one
    loop-route frame on the rebuilt tables with the instance kernel held
    on each of its 12 launches whole and its device time summed; a frame with and one without a leaf edit under
    torch.profiler (the edit adds no host sync); a 1080p frame with the
@@ -1109,6 +1111,7 @@ def _edits_phase(hdda, dev, card, reset_counts, rmse):
 
     import torch
     from dust_tpu_torch import bench_edits as be
+    from dust_tpu_torch.render import edits as editlib
     from dust_tpu_torch.render import materials as matlib
     from dust_tpu_torch.render.edits import SceneEditor
     from dust_tpu_torch.render.pipeline import make_frame_state
@@ -1127,15 +1130,30 @@ def _edits_phase(hdda, dev, card, reset_counts, rmse):
     torch.cuda.synchronize()
     launches, times = {}, {}
 
+    def check_refits(label, before, landed):
+        """``edits.REFITS`` since ``before``: ``landed`` (tier -> count),
+        nothing under the other tiers. Read before the CPU editor's
+        replay, which counts too."""
+        got = {k: editlib.REFITS[k] - before[k] for k in editlib.REFITS}
+        want = {k: landed.get(k, 0) for k in editlib.REFITS}
+        print(f"{label}: edits.REFITS landed {got}")
+        if got != want:
+            raise SystemExit(f"{label}: edits.REFITS counted {got}, not "
+                             f"{want}")
+
     # ---- interleaved: no edit, a leaf edit every frame, staged splices --
     reset_counts()
+    before = dict(editlib.REFITS)
     times["base_ms"] = min(be.run(ctx, n), be.run(ctx, n))
     _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, 2 * n,
                     "edits baseline hdda_scene")
+    check_refits("edits baseline", before, {})
     launches["edits baseline"] = dict(hdda.LAUNCHES)
     reset_counts()
+    before = dict(editlib.REFITS)
     times["leaf_ms"] = min(be.run(ctx, n, lambda f: be.leaf_edit(ctx, f)),
                            be.run(ctx, n, lambda f: be.leaf_edit(ctx, f)))
+    check_refits("edits leaf", before, {"leaf": 2 * n})
     done = _edit_tier(hdda, "edits leaf", ctx, cpu_ed, 0, "leaf", 2 * n,
                       launches)
 
@@ -1154,6 +1172,7 @@ def _edits_phase(hdda, dev, card, reset_counts, rmse):
         raise SystemExit(f"edits: a leaf edit added host syncs "
                          f"({edit_syncs} against {plain_syncs})")
     reset_counts()
+    before, staged = dict(editlib.REFITS), len(ctx["edits"])
     every = max(n // 2, 1)
     times["splice_ms"] = min(
         be.run(ctx, n, lambda f: be.splice_step(ctx, f, every)),
@@ -1162,16 +1181,22 @@ def _edits_phase(hdda, dev, card, reset_counts, rmse):
     times["swap_frames"] = list(ctx["splice_swaps"])
     if not ctx["splice_swaps"]:
         raise SystemExit("edits: no staged splice swapped in")
+    # One splice a staged block (each is one edit), the last one landed
+    # by land_splice.
+    check_refits("edits splice", before,
+                 {"splice": len(ctx["edits"]) - staged})
     done = _edit_tier(hdda, "edits splice", ctx, cpu_ed, done, "splice",
                       2 * n, launches)
 
     # ---- one forced rebuild --------------------------------------------
+    before = dict(editlib.REFITS)
     be.edit(ctx, be.slab_voxels(), 4)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ctx["scene"], ctx["state"] = ctx["editor"].refit(ctx["state"])
     torch.cuda.synchronize()
     times["rebuild_in_loop_ms"] = 1e3 * (time.perf_counter() - t0)
+    check_refits("edits rebuild", before, {"rebuild": 1})
     reset_counts()
     out, frame_s = _timed_frames(ctx, 2, 0, lambda: be.render(ctx))
     done = _edit_tier(hdda, "edits rebuild", ctx, cpu_ed, done, "rebuild", 2,

@@ -36,11 +36,22 @@ splice or a rebuild the scene is broadcast again from rank 0.
 Every device upload and scatter runs on the caller's thread; the staged
 refit (:meth:`SceneEditor.refit_async`) runs only the host geometry
 build on a worker thread.
+
+Spans (``utils.profiling.trace_annotation``, a no-op with no profiler
+running): ``dust.edit.set`` (a ``set_voxel`` / ``set_voxels`` call),
+``dust.edit.refit`` (a ``refit``, ``refit_async`` or ``poll_refit``
+call), and inside it on the caller's thread ``dust.edit.merge`` (the
+overlay folded in), ``dust.edit.patch`` (the leaf tier's rows, scatters
+and uploads), ``dust.edit.rebuild`` (a model's host geometry build; on
+the worker thread for a staged refit) and ``dust.edit.splice`` (the
+splice or scene rebuild, and the GI tables' re-keying).
+:data:`REFITS` counts the refits that land, by tier.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 
 import numpy as np
@@ -51,11 +62,27 @@ from dust_tpu_torch.render.scene import (DeviceScene, apply_leaf_patch,
                                          build_device_scene, material_layout,
                                          patch_gi_albedo, splice_model)
 from dust_tpu_torch.utils import color as colorlib
+from dust_tpu_torch.utils.profiling import trace_annotation
 from dust_tpu_torch.vox.geometry import pack_avg_albedo
 from dust_tpu_torch.vox.loader import (VoxScene, build_model_geometry,
                                        build_model_geometry_plain)
 
-__all__ = ["SceneEditor"]
+__all__ = ["SceneEditor", "REFITS"]
+
+# Refits landed, by tier (the value ``last_refit_mode`` takes): a no-op
+# refit counts nothing, a staged one counts when ``poll_refit`` lands it.
+REFITS = {"leaf": 0, "splice": 0, "rebuild": 0}
+
+
+def _span(name: str):
+    """Run the decorated method inside the span ``name``."""
+    def wrap(method):
+        @functools.wraps(method)
+        def spanned(*args, **kwargs):
+            with trace_annotation(name):
+                return method(*args, **kwargs)
+        return spanned
+    return wrap
 
 
 def geometry_voxels(geo):
@@ -117,6 +144,7 @@ class SceneEditor:
         self._worker_error: Exception | None = None
         self._worker_dirty: list = []
 
+    @_span("dust.edit.set")
     def set_voxel(self, model_id: int, coords, palette_idx: int | None) -> None:
         """Set (palette index) or clear (None) one voxel."""
         key = tuple(int(c) for c in coords)
@@ -126,6 +154,7 @@ class SceneEditor:
             None if palette_idx is None else int(palette_idx))
         self._dirty.add(model_id)
 
+    @_span("dust.edit.set")
     def set_voxels(self, model_id: int, coords: np.ndarray, palette_idx) -> None:
         """Bulk set; ``palette_idx`` scalar or per voxel; None clears."""
         coords = np.asarray(coords, dtype=np.int64)
@@ -145,6 +174,7 @@ class SceneEditor:
     def _enc(c: np.ndarray) -> np.ndarray:
         return (c[:, 0].astype(np.int64) << 16) | (c[:, 1] << 8) | c[:, 2]
 
+    @_span("dust.edit.merge")
     def _merge_pending(self, mid: int) -> None:
         """Fold the overlay into the model's arrays."""
         pend = self._pending[mid]
@@ -165,6 +195,7 @@ class SceneEditor:
         self._idx[mid] = np.concatenate([self._idx[mid][keep], add_idx])
         pend.clear()
 
+    @_span("dust.edit.refit")
     def refit(self, frame_state=None):
         """Apply the pending edits to the device scene.
 
@@ -189,6 +220,7 @@ class SceneEditor:
             return slice(0, rows)
         return slice(*parallel.ray_sharding(self.mesh, rows))
 
+    @_span("dust.edit.splice")
     def _refresh_state(self, frame_state, device, rows_before: int):
         """Re-key a FrameState's dense GI tables after a splice or
         rebuild (from a scene of ``rows_before`` dense rows)."""
@@ -210,6 +242,7 @@ class SceneEditor:
                                              slice(0, rows)))
         return frame_state
 
+    @_span("dust.edit.refit")
     def refit_async(self, frame_state=None):
         """Non-blocking refit: the reference's async BLAS batch build
         (``crates/render/src/accel_struct/blas.rs:125``).
@@ -256,6 +289,7 @@ class SceneEditor:
     def refit_in_flight(self) -> bool:
         return self._worker is not None
 
+    @_span("dust.edit.refit")
     def poll_refit(self, frame_state=None, block=False):
         """None while a staged rebuild is running; what :meth:`refit`
         returns once it has landed (the splice itself, uploads and
@@ -298,8 +332,6 @@ class SceneEditor:
         eligible (the caller goes on to the splice tier)."""
         if not self._dirty or self._stale:
             return None
-        palette = self.vox_scene.palette  # (256, 4) uint8
-        inst_model = self.device.inst_model
 
         # ---- eligibility and each leaf's new content (nothing changed yet)
         leaves = []  # (slot, row, origin, {bit: palette_idx})
@@ -338,6 +370,16 @@ class SceneEditor:
                 if not content:
                     return None  # the leaf dies: the block set changes
                 leaves.append((slot, row, origin, content))
+        return self._patch_leaves(leaves, frame_state)
+
+    @_span("dust.edit.patch")
+    def _patch_leaves(self, leaves, frame_state):
+        """The leaf tier once every edit is eligible: each touched leaf's
+        ``(slot, row, origin, {bit: palette_idx})`` scattered into the
+        device scene and, given a ``FrameState``, into its GI albedo
+        rows. Returns what :meth:`refit` returns."""
+        palette = self.vox_scene.palette  # (256, 4) uint8
+        inst_model = self.device.inst_model
 
         # ---- the K patch rows -----------------------------------------
         K = len(leaves)
@@ -393,6 +435,7 @@ class SceneEditor:
             self._merge_pending(mid)
         self._dirty.clear()
         self.last_refit_mode = "leaf"
+        REFITS["leaf"] += 1
         if frame_state is None:
             return device
         # The hash frame's working set carries the same albedo words as
@@ -412,6 +455,7 @@ class SceneEditor:
                     table=patch_gi_albedo(ws.table, gi_rows, gi_alb)))
         return device, frame_state
 
+    @_span("dust.edit.rebuild")
     def _rebuild_geometry(self, mid: int):
         """Host geometry rebuild of one model from the editor's (merged)
         coord and palette arrays: the costly part of the splice tier, safe
@@ -440,6 +484,7 @@ class SceneEditor:
         self._dirty.clear()
         return self._apply_splice(dirty)
 
+    @_span("dust.edit.splice")
     def _apply_splice(self, dirty) -> DeviceScene:
         """Splice the (rebuilt) dirty models' rows into the device scene,
         or rebuild the whole scene when one no longer fits its padding."""
@@ -454,6 +499,7 @@ class SceneEditor:
         if device is not None:
             self.last_refit_mode = "splice"
             self.device = self._replicated(device)
+            REFITS["splice"] += 1
             return self.device
 
         self.last_refit_mode = "rebuild"
@@ -466,6 +512,7 @@ class SceneEditor:
         geos = [self.vox_scene.geometries[m] for m in self._model_ids]
         _, self._mat_cap = material_layout(geos)
         self.device = self._replicated(new)
+        REFITS["rebuild"] += 1
         return self.device
 
     def _replicated(self, device: DeviceScene) -> DeviceScene:
