@@ -1130,30 +1130,39 @@ def _edits_phase(hdda, dev, card, reset_counts, rmse):
     torch.cuda.synchronize()
     launches, times = {}, {}
 
-    def check_refits(label, before, landed):
-        """``edits.REFITS`` since ``before``: ``landed`` (tier -> count),
-        nothing under the other tiers. Read before the CPU editor's
-        replay, which counts too."""
-        got = {k: editlib.REFITS[k] - before[k] for k in editlib.REFITS}
+    def counts():
+        return dict(editlib.REFITS), dict(editlib.CELLS)
+
+    def check_refits(label, before, landed, cells=None):
+        """``edits.REFITS`` since ``before`` (a ``counts()``): ``landed``
+        (tier -> count), nothing under the other tiers; ``edits.CELLS``
+        since then printed, and held to ``cells`` when given. Read before
+        the CPU editor's replay, which counts too."""
+        got = {k: editlib.REFITS[k] - before[0][k] for k in editlib.REFITS}
         want = {k: landed.get(k, 0) for k in editlib.REFITS}
-        print(f"{label}: edits.REFITS landed {got}")
+        grid = {k: editlib.CELLS[k] - before[1][k] for k in editlib.CELLS}
+        print(f"{label}: edits.REFITS landed {got}, edits.CELLS {grid}")
         if got != want:
             raise SystemExit(f"{label}: edits.REFITS counted {got}, not "
                              f"{want}")
+        if cells is not None and grid != cells:
+            raise SystemExit(f"{label}: edits.CELLS counted {grid}, not "
+                             f"{cells}")
 
     # ---- interleaved: no edit, a leaf edit every frame, staged splices --
     reset_counts()
-    before = dict(editlib.REFITS)
+    before = counts()
     times["base_ms"] = min(be.run(ctx, n), be.run(ctx, n))
     _check_launches(hdda.LAUNCHES, SCENE_LAUNCHES, 2 * n,
                     "edits baseline hdda_scene")
     check_refits("edits baseline", before, {})
     launches["edits baseline"] = dict(hdda.LAUNCHES)
     reset_counts()
-    before = dict(editlib.REFITS)
+    before = counts()
     times["leaf_ms"] = min(be.run(ctx, n, lambda f: be.leaf_edit(ctx, f)),
                            be.run(ctx, n, lambda f: be.leaf_edit(ctx, f)))
-    check_refits("edits leaf", before, {"leaf": 2 * n})
+    check_refits("edits leaf", before, {"leaf": 2 * n},
+                 {"merge": 2 * n, "leaf": 64 * 2 * n})
     done = _edit_tier(hdda, "edits leaf", ctx, cpu_ed, 0, "leaf", 2 * n,
                       launches)
 
@@ -1172,7 +1181,7 @@ def _edits_phase(hdda, dev, card, reset_counts, rmse):
         raise SystemExit(f"edits: a leaf edit added host syncs "
                          f"({edit_syncs} against {plain_syncs})")
     reset_counts()
-    before, staged = dict(editlib.REFITS), len(ctx["edits"])
+    before, staged = counts(), len(ctx["edits"])
     every = max(n // 2, 1)
     times["splice_ms"] = min(
         be.run(ctx, n, lambda f: be.splice_step(ctx, f, every)),
@@ -1189,7 +1198,7 @@ def _edits_phase(hdda, dev, card, reset_counts, rmse):
                       2 * n, launches)
 
     # ---- one forced rebuild --------------------------------------------
-    before = dict(editlib.REFITS)
+    before = counts()
     be.edit(ctx, be.slab_voxels(), 4)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1759,13 +1768,12 @@ def _native_phase(dev, card, edit_times):
     ed = SceneEditor(vox, scn.build_device_scene(vox, dev))
     fresh = fresh_leaf_voxels(vox)
     ed.set_voxel(0, fresh[0], 5)
-    ed._merge_pending(0)
+    ed.refit()
     geo = vox.geometries[0]
     nat, plain, first = _in_turns(
         lambda: ed._rebuild_geometry(0),
         lambda: loader.build_model_geometry_plain(
-            ed._coords[0], ed._idx[0], vox.palette, geo.size,
-            geo.unit_size))
+            *ed.voxels(0), vox.palette, geo.size, geo.unit_size))
     _geometries_equal("castle rebuild", first["native"], first["plain"])
     out["rebuild_geometry_ms"] = dict(native=nat, plain=plain)
 
@@ -1791,7 +1799,7 @@ def _native_phase(dev, card, edit_times):
     def rebuild_plain(mid):
         g = vox.geometries[mid]
         return loader.build_model_geometry_plain(
-            ed._coords[mid], ed._idx[mid], vox.palette, g.size, g.unit_size)
+            *ed.voxels(mid), vox.palette, g.size, g.unit_size)
 
     edits = iter(fresh[1:])
 

@@ -77,7 +77,8 @@ def setup(device, width=1920, height=1080, backend="pallas") -> dict:
     """The interleaved run's frame: castle + teapot (at rest), dense GI,
     the reference bench's camera; the editor; the first frame's state.
     ``edits`` logs every edit as (model, coords (k, 3), palette index or
-    None) in the order made."""
+    None) in the order made; ``voxels`` holds model 0's voxels as loaded
+    (the leaf edits repaint them)."""
     from dust_tpu_torch.config import RenderSettings
     from dust_tpu_torch.ops import camera as cameralib
     from dust_tpu_torch.ops.noise import load_blue_noise
@@ -96,8 +97,9 @@ def setup(device, width=1920, height=1080, backend="pallas") -> dict:
     cam = cameralib.camera_settings(
         cameralib.look_at(EYE, TARGET), settings.camera.fov,
         settings.camera.near, settings.camera.far, width, height, device)
+    editor = SceneEditor(vox, scene)
     return dict(device=device, settings=settings, vox=vox, scene=scene,
-                editor=SceneEditor(vox, scene),
+                editor=editor, voxels=editor.voxels(0)[0],
                 state=make_frame_state(settings, scene, device),
                 sky=bake_sky(settings.sunlight, device),
                 bn=load_blue_noise(device), cam=cam, edits=[],
@@ -139,8 +141,7 @@ def edit(ctx, coords, palette_idx, model=0):
 def leaf_edit(ctx, f):
     """A palette change of an existing voxel, refit at once (the leaf
     tier)."""
-    ed = ctx["editor"]
-    coords = ed._coords[0]
+    ed, coords = ctx["editor"], ctx["voxels"]
     edit(ctx, coords[f % len(coords)], 5 + (f % 3))
     ctx["scene"], ctx["state"] = ed.refit(ctx["state"])
     if ed.last_refit_mode != "leaf":
@@ -243,7 +244,7 @@ def isolated(device, edits) -> dict:
             return scene.avg_albedo[0, 0]
         return step
 
-    coords = ed._coords[0]
+    coords = ed.voxels(0)[0]
     leaf = timed(tier("leaf", lambda k: ed.set_voxel(
         0, tuple(int(v) for v in coords[k % len(coords)]), 5 + (k % 3))),
         edits)

@@ -226,7 +226,7 @@ def _edit_frame(ctx, mesh):
     editor = SceneEditor(vox, scene, mesh=mesh)
     mid = sorted(vox.geometries)[0]
     _, state = _frames(ctx, mesh, [ctx["cam"]], state=state, scene=scene)
-    editor.set_voxel(mid, tuple(int(v) for v in editor._coords[mid][0]), 7)
+    editor.set_voxel(mid, tuple(int(v) for v in editor.voxels(mid)[0][0]), 7)
     scene, state = editor.refit(state)
     if editor.last_refit_mode != "leaf":
         raise AssertionError(f"refit tier {editor.last_refit_mode}, "

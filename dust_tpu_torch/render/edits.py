@@ -6,8 +6,14 @@ mutates tree voxels, and the BLAS/TLAS then rebuilds (BASELINE config #4:
 "per-frame voxel leaf edits + tree/acceleration refit with GI
 re-render"). Clears are supported as well as sets.
 
-The editor owns the host-side voxel state per model. A refit takes the
-cheapest of three tiers:
+The editor owns the host-side voxel state per model: a dense 256^3 grid
+of one-based palette indices (``uint16``, 0 = empty, 32 MiB a model) in
+the native scene build's cell order, ``(block << 6) | bit`` with
+``block = bx + by*64 + bz*64^2`` (``native/voxcore.cpp``), so a leaf's 64
+cells are contiguous. Edits go to an overlay of pending voxels; a refit
+scatters the overlay into the grid and reads a touched leaf's 64 cells,
+so the host work on the caller's thread is O(edits), not O(model). A
+refit takes the cheapest of three tiers:
 
 * **leaf**: every pending edit lands in an existing leaf that stays
   non-empty, so the leaf set is unchanged and only the touched leaves'
@@ -45,7 +51,9 @@ overlay folded in), ``dust.edit.patch`` (the leaf tier's rows, scatters
 and uploads), ``dust.edit.rebuild`` (a model's host geometry build; on
 the worker thread for a staged refit) and ``dust.edit.splice`` (the
 splice or scene rebuild, and the GI tables' re-keying).
-:data:`REFITS` counts the refits that land, by tier.
+:data:`REFITS` counts the refits that land, by tier; :data:`CELLS` the
+grid cells the caller's thread writes in merges and reads in the leaf
+tier.
 """
 
 from __future__ import annotations
@@ -67,11 +75,16 @@ from dust_tpu_torch.vox.geometry import pack_avg_albedo
 from dust_tpu_torch.vox.loader import (VoxScene, build_model_geometry,
                                        build_model_geometry_plain)
 
-__all__ = ["SceneEditor", "REFITS"]
+__all__ = ["SceneEditor", "REFITS", "CELLS"]
 
 # Refits landed, by tier (the value ``last_refit_mode`` takes): a no-op
 # refit counts nothing, a staged one counts when ``poll_refit`` lands it.
 REFITS = {"leaf": 0, "splice": 0, "rebuild": 0}
+# Grid cells touched on the caller's thread: written by merges (one a
+# pending edit) and read by the leaf tier (64 a touched leaf).
+CELLS = {"merge": 0, "leaf": 0}
+
+_GRID_CELLS = 1 << 24  # 256^3
 
 
 def _span(name: str):
@@ -85,22 +98,66 @@ def _span(name: str):
     return wrap
 
 
-def geometry_voxels(geo):
-    """A model's voxels decoded from its flat pools: coords (N, 3) int64
-    in (leaf row, bit) order and palette indices (N,) uint8."""
+def _pool_voxels(geo):
+    """Every voxel of a model's flat pools, in (leaf row, bit) order: its
+    leaf row, its bit in the leaf and its palette index (uint8)."""
     flat = geo.flat
-    if not flat.num_leaves:
-        return np.zeros((0, 3), np.int64), np.zeros((0,), np.uint8)
     occ = flat.occupancy_u64()
     bits = ((occ[:, None] >> np.arange(64, dtype=np.uint64))
             & np.uint64(1)).astype(bool)                    # (L, 64)
     rank = np.cumsum(bits, axis=1) - 1                       # within-leaf k
     rows, bit = np.nonzero(bits)
-    off = np.stack([bit >> 4, (bit >> 2) & 3, bit & 3], 1)
-    coords = flat.leaf_origin[rows].astype(np.int64) + off
     midx = geo.materials[flat.material_ptr[rows].astype(np.int64)
                          + rank[rows, bit]].astype(np.uint8)
-    return coords, midx
+    return rows, bit, midx
+
+
+def geometry_voxels(geo):
+    """A model's voxels decoded from its flat pools: coords (N, 3) int64
+    in (leaf row, bit) order and palette indices (N,) uint8."""
+    if not geo.flat.num_leaves:
+        return np.zeros((0, 3), np.int64), np.zeros((0,), np.uint8)
+    rows, bit, midx = _pool_voxels(geo)
+    off = np.stack([bit >> 4, (bit >> 2) & 3, bit & 3], 1)
+    return geo.flat.leaf_origin[rows].astype(np.int64) + off, midx
+
+
+def _block(b: np.ndarray) -> np.ndarray:
+    """The grid's block of leaf coordinates ``b`` (..., 3)."""
+    return b[..., 0] | (b[..., 1] << 6) | (b[..., 2] << 12)
+
+
+def _cells(coords: np.ndarray) -> np.ndarray:
+    """The grid cells of voxel coordinates (N, 3) int64."""
+    bit = ((coords[:, 0] & 3) << 4) | ((coords[:, 1] & 3) << 2) \
+        | (coords[:, 2] & 3)
+    return (_block(coords >> 2) << 6) | bit
+
+
+def _model_grid(geo) -> np.ndarray:
+    """A model's grid, filled from its flat pools."""
+    grid = np.zeros(_GRID_CELLS, np.uint16)
+    if geo.flat.num_leaves:
+        rows, bit, midx = _pool_voxels(geo)
+        block = _block(geo.flat.leaf_origin.astype(np.int64) >> 2)
+        grid[(block[rows] << 6) | bit] = midx.astype(np.uint16) + 1
+    return grid
+
+
+def _grid_voxels(grid: np.ndarray):
+    """The voxels of a grid in cell order: coords (N, 3) int32 and
+    palette indices (N,) uint8 (the occupied blocks first, then their
+    cells)."""
+    leaves = grid.reshape(-1, 64)
+    blocks = np.flatnonzero(leaves.any(axis=1)).astype(np.int32)
+    vals = leaves[blocks]                                    # (L, 64)
+    k, bit = np.nonzero(vals)
+    block, bit = blocks[k], bit.astype(np.int32)
+    coords = np.empty((len(k), 3), np.int32)
+    coords[:, 0] = ((block & 63) << 2) | (bit >> 4)
+    coords[:, 1] = (((block >> 6) & 63) << 2) | ((bit >> 2) & 3)
+    coords[:, 2] = ((block >> 12) << 2) | (bit & 3)
+    return coords, (vals[k, bit] - 1).astype(np.uint8)
 
 
 class SceneEditor:
@@ -113,16 +170,15 @@ class SceneEditor:
         self.device = device_scene
         self.mesh = mesh
         self._model_ids = sorted(vox_scene.geometries)
-        # Editable voxel state per model: coords (N, 3) and palette
-        # indices (N,) decoded from the flat pools, plus an overlay of
-        # pending edits.
-        self._coords: dict[int, np.ndarray] = {}
-        self._idx: dict[int, np.ndarray] = {}
+        # Editable voxel state per model: the grid (module docstring),
+        # filled from the flat pools, plus an overlay of pending edits.
+        # Nothing writes a grid while a staged refit is in flight: its
+        # worker decodes the grids of the models it rebuilds, and
+        # refit / refit_async, the only callers of a merge, raise then.
+        self._grid: dict[int, np.ndarray] = {}
         self._pending: dict[int, dict[tuple[int, int, int], int | None]] = {}
         for mid in self._model_ids:
-            coords, midx = geometry_voxels(vox_scene.geometries[mid])
-            self._coords[mid] = coords
-            self._idx[mid] = midx
+            self._grid[mid] = _model_grid(vox_scene.geometries[mid])
             self._pending[mid] = {}
         self._dirty: set[int] = set()
         # Models whose merged edits the device does not have yet (a
@@ -135,9 +191,6 @@ class SceneEditor:
         _, self._mat_cap = material_layout(geos)
         # How the last refit was applied: "leaf", "splice" or "rebuild".
         self.last_refit_mode: str | None = None
-        # origin tuple -> leaf row per model (the leaf tier); dropped
-        # whenever a splice or rebuild reorders the model's leaf rows.
-        self._leaf_rows: dict[int, dict] = {}
         # The staged refit (refit_async / poll_refit).
         self._worker: threading.Thread | None = None
         self._worker_out: dict = {}
@@ -170,29 +223,23 @@ class SceneEditor:
                 pend[tuple(int(v) for v in c)] = int(pi)
         self._dirty.add(model_id)
 
-    @staticmethod
-    def _enc(c: np.ndarray) -> np.ndarray:
-        return (c[:, 0].astype(np.int64) << 16) | (c[:, 1] << 8) | c[:, 2]
+    def voxels(self, model_id: int):
+        """The model's voxels as the grid holds them (pending edits not
+        included), in cell order: coords (N, 3) int64 and palette indices
+        (N,) uint8. Walks the whole grid: for tests and tools."""
+        coords, idx = _grid_voxels(self._grid[model_id])
+        return coords.astype(np.int64), idx
 
     @_span("dust.edit.merge")
     def _merge_pending(self, mid: int) -> None:
-        """Fold the overlay into the model's arrays."""
+        """Scatter the overlay into the model's grid."""
         pend = self._pending[mid]
         if not pend:
             return
-        pkeys = np.array([(x << 16) | (y << 8) | z
-                          for (x, y, z) in pend], np.int64)
-        vals = list(pend.values())
-        set_mask = np.array([v is not None for v in vals], bool)
-        base = self._coords[mid]
-        keep = ~np.isin(self._enc(base), pkeys) if len(base) else \
-            np.zeros(0, bool)
-        add_keys = pkeys[set_mask]
-        add = np.stack([(add_keys >> 16) & 0xFF, (add_keys >> 8) & 0xFF,
-                        add_keys & 0xFF], 1)
-        add_idx = np.array([v for v in vals if v is not None], np.uint8)
-        self._coords[mid] = np.concatenate([base[keep], add])
-        self._idx[mid] = np.concatenate([self._idx[mid][keep], add_idx])
+        cells = _cells(np.array(list(pend), np.int64))
+        self._grid[mid][cells] = np.array(
+            [0 if v is None else v + 1 for v in pend.values()], np.uint16)
+        CELLS["merge"] += len(cells)
         pend.clear()
 
     @_span("dust.edit.refit")
@@ -261,12 +308,11 @@ class SceneEditor:
         if not self._dirty:
             return (self.device, frame_state) if frame_state is not None \
                 else self.device
-        # Merge and snapshot on the caller's thread; the worker reads only
-        # the merged arrays, which nothing else changes until the next
-        # merge (one refit is in flight at a time).
+        # Merge on the caller's thread; the worker decodes the merged
+        # grids, which nothing writes until the next merge (one refit is
+        # in flight at a time).
         dirty = sorted(self._dirty)
         for mid in dirty:
-            self._leaf_rows.pop(mid, None)
             self._merge_pending(mid)
         self._stale.update(dirty)
         self._dirty.clear()
@@ -334,34 +380,27 @@ class SceneEditor:
             return None
 
         # ---- eligibility and each leaf's new content (nothing changed yet)
-        leaves = []  # (slot, row, origin, {bit: palette_idx})
+        leaves = []  # (slot, row, {bit: palette_idx})
         for mid in sorted(self._dirty):
             pend = self._pending[mid]
             if not pend:
                 return None  # dirty without an overlay: unknown edit source
-            rows_map = self._leaf_rows.get(mid)
-            if rows_map is None:
-                lo = self.vox_scene.geometries[mid].flat.leaf_origin
-                rows_map = {tuple(int(v) for v in o): r
-                            for r, o in enumerate(np.asarray(lo))}
-                self._leaf_rows[mid] = rows_map
+            leaf_grid = self.vox_scene.geometries[mid].flat.leaf_grid
+            grid = self._grid[mid]
             slot = self._model_ids.index(mid)
             by_leaf: dict[tuple, dict] = {}
             for (x, y, z), pi in pend.items():
-                by_leaf.setdefault((x & ~3, y & ~3, z & ~3), {})[
+                by_leaf.setdefault((x >> 2, y >> 2, z >> 2), {})[
                     ((x & 3) << 4) | ((y & 3) << 2) | (z & 3)] = pi
-            coords = self._coords[mid]
-            idx = self._idx[mid]
-            enc = self._enc(coords) if len(coords) else np.zeros(0, np.int64)
-            for origin, edits in by_leaf.items():
-                row = rows_map.get(origin)
-                if row is None:
+            for (bx, by, bz), edits in by_leaf.items():
+                row = int(leaf_grid[bx, by, bz])
+                if row < 0:
                     return None  # a new leaf changes the row order
-                okey = (origin[0] << 16) | (origin[1] << 8) | origin[2]
-                sel = (enc & ~np.int64(0x030303)) == okey
-                content = {
-                    int(((c[0] & 3) << 4) | ((c[1] & 3) << 2) | (c[2] & 3)):
-                    int(i) for c, i in zip(coords[sel], idx[sel])}
+                block = bx | (by << 6) | (bz << 12)
+                cells = grid[block << 6:(block + 1) << 6]
+                CELLS["leaf"] += 64
+                content = {int(b): int(cells[b]) - 1
+                           for b in np.flatnonzero(cells)}
                 for bit, pi in edits.items():
                     if pi is None:
                         content.pop(bit, None)
@@ -369,13 +408,13 @@ class SceneEditor:
                         content[bit] = pi
                 if not content:
                     return None  # the leaf dies: the block set changes
-                leaves.append((slot, row, origin, content))
+                leaves.append((slot, row, content))
         return self._patch_leaves(leaves, frame_state)
 
     @_span("dust.edit.patch")
     def _patch_leaves(self, leaves, frame_state):
         """The leaf tier once every edit is eligible: each touched leaf's
-        ``(slot, row, origin, {bit: palette_idx})`` scattered into the
+        ``(slot, row, {bit: palette_idx})`` scattered into the
         device scene and, given a ``FrameState``, into its GI albedo
         rows. Returns what :meth:`refit` returns."""
         palette = self.vox_scene.palette  # (256, 4) uint8
@@ -389,7 +428,7 @@ class SceneEditor:
         mhi = np.zeros(K, np.uint32)
         albs = np.zeros(K, np.uint32)
         vox = np.zeros((K, 4, 16), np.int32)
-        for k, (slot, row, origin, content) in enumerate(leaves):
+        for k, (slot, row, content) in enumerate(leaves):
             models[k], rows[k] = slot, row
             bits = np.fromiter(sorted(content), np.int64)
             pis = np.fromiter((content[b] for b in sorted(content)), np.int64)
@@ -457,13 +496,14 @@ class SceneEditor:
 
     @_span("dust.edit.rebuild")
     def _rebuild_geometry(self, mid: int):
-        """Host geometry rebuild of one model from the editor's (merged)
-        coord and palette arrays: the costly part of the splice tier, safe
-        to run off the render thread (the native build releases the
-        interpreter lock; touches no editor state)."""
-        coords = self._coords[mid]
+        """Host geometry rebuild of one model from its (merged) grid: the
+        costly part of the splice tier, safe to run off the render thread
+        (it only reads the grid, which nothing writes while a staged
+        refit is in flight; the native build releases the interpreter
+        lock). The build does not depend on the order of its voxels."""
+        coords, idx = _grid_voxels(self._grid[mid])
         geo_old = self.vox_scene.geometries[mid]
-        args = (coords, self._idx[mid], self.vox_scene.palette, geo_old.size,
+        args = (coords, idx, self.vox_scene.palette, geo_old.size,
                 geo_old.unit_size)
         if len(coords):
             return build_model_geometry(*args)
@@ -476,8 +516,6 @@ class SceneEditor:
             return self.device
         dirty = sorted(self._dirty)
         for mid in dirty:
-            # A geometry rebuild reorders leaf rows: drop the leaf-row map.
-            self._leaf_rows.pop(mid, None)
             self._merge_pending(mid)
             self._stale.add(mid)
             self.vox_scene.geometries[mid] = self._rebuild_geometry(mid)

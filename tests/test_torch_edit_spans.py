@@ -6,7 +6,9 @@ thread and, inside it, the steps of its tier: ``dust.edit.merge`` and
 ``dust.edit.rebuild`` and ``dust.edit.splice`` for a synchronous splice
 or rebuild; a staged refit opens ``dust.edit.rebuild`` on its worker
 thread (seen by a profiler that follows every thread) and ``poll_refit``
-the splice. ``edits.REFITS`` counts one a landed refit under its tier.
+the splice. ``edits.REFITS`` counts one a landed refit under its tier;
+``edits.CELLS`` the editor's grid cells that a leaf refit touches on the
+caller's thread (the castle's one-voxel refit: one written, 64 read).
 Untraced, the editor's scene and GI tables are the reference editor's
 (``dust_tpu.render.edits``) bit for bit, and the same traced. The
 teapot, torch on one thread. The test marked ``gpu`` runs the tiers on
@@ -221,6 +223,20 @@ def test_refits_count_a_staged_refit_when_it_lands(monkeypatch):
     assert ed.poll_refit(state, block=True) is not None
     assert ed.last_refit_mode == "splice"
     assert _delta(before) == _count("splice")
+
+
+def test_cells_of_a_one_voxel_leaf_refit_on_the_castle():
+    """A one-voxel leaf refit on the castle (1,362,970 voxels) writes one
+    grid cell in its merge and reads the 64 cells of its leaf: no step
+    on the caller's thread walks the model's voxels."""
+    vox = load_vox_scene(procgen.castle_scene_bytes())
+    ed = SceneEditor(vox, build_device_scene(vox, "cpu"))
+    before = dict(edits.CELLS)
+    ed.set_voxels(0, *_tier_edit(vox, "leaf"))
+    ed.refit()
+    assert ed.last_refit_mode == "leaf"
+    assert {k: edits.CELLS[k] - before[k] for k in edits.CELLS} == {
+        "merge": 1, "leaf": 64}
 
 
 # ---- outputs -------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's scene editor against the reference's, on the same edits.
 
 Every edit sequence of tests/test_edits.py (and a few that reach the last
-rows of the tables) goes through the reference's ``SceneEditor`` and the
+rows of the tables, and a seeded stream of sets, clears and duplicate
+writes) goes through the reference's ``SceneEditor`` and the
 port's, each built from its own package's load of the same ``.vox`` bytes:
 the teapot, and five instances of it (the GI rows of one leaf shared by
 five instances). After every refit:
@@ -16,14 +17,16 @@ five instances). After every refit:
   against the reference's Pallas kernel in interpret mode (t within
   1e-6 relative).
 
-Then the staged refit (async equals sync, edits made in flight stay
-pending, a failing rebuild re-raises in ``poll_refit``) and three frames
+Then the staged refit (async equals sync, the worker builds the grid as
+it stood at staging, edits made in flight stay pending, a failing
+rebuild re-raises in ``poll_refit``) and three frames
 rendered while edits land, held to the frame tests' tolerance (output
 RMSE < 0.01).
 """
 
 import dataclasses
 import sys
+import threading
 import time
 
 import numpy as np
@@ -55,7 +58,8 @@ from dust_tpu_torch.render import pipeline as tpipe
 from dust_tpu_torch.render.edits import SceneEditor
 from dust_tpu_torch.render.scene import build_device_scene
 from dust_tpu_torch.vox import procgen
-from dust_tpu_torch.vox.loader import VoxInstance, load_vox_scene
+from dust_tpu_torch.vox.loader import (VoxInstance, build_model_geometry,
+                                       load_vox_scene)
 from tests.torch_parity import (TEAPOT_EYE, TEAPOT_TARGET, port_scene,
                                 teapot_ray_sets, tensor)
 from tools.rmse import rmse
@@ -286,6 +290,46 @@ def seq_past_gi_cap(p):
     return tiers + [p.refit()]
 
 
+def seq_seeded_stream(p):
+    """A seeded stream: repaints, clears and sets in occupied leaves with
+    duplicate writes to one voxel (leaf tier); a leaf emptied; voxels in
+    new leaves; then repaints in a leaf the splice added (leaf tier)."""
+    rng = np.random.default_rng(2323)
+
+    def pal():
+        return int(rng.integers(0, 256))
+
+    occ = p.jv.geometries[0].flat.occupancy_u64()
+    counts = np.unpackbits(occ.view(np.uint8).reshape(-1, 8), axis=1).sum(1)
+    rows = rng.choice(np.flatnonzero(counts >= 3), 6, replace=False)
+    leaves = [_occupied_leaf(p.jv, int(r)) for r in rows]
+    for origin, vx in leaves[:4]:
+        free = [c for c in ((origin[0] + ((b >> 4) & 3),
+                             origin[1] + ((b >> 2) & 3), origin[2] + (b & 3))
+                            for b in range(64)) if c not in set(vx)]
+        p.edit(vx[0], pal())
+        p.edit(vx[1], None)
+        if free:
+            p.edit(free[int(rng.integers(len(free)))], pal())
+    dup = leaves[4][1]
+    p.edit([dup[0]] * 3, [pal(), pal(), pal()])  # last write wins
+    p.edit(dup[1], pal())
+    p.edit(dup[1], None)                         # set, then cleared
+    p.edit(dup[2], None)
+    p.edit(dup[2], pal())                        # cleared, then set
+    tiers = [p.refit()]
+    p.edit(leaves[5][1], None)                   # a leaf emptied
+    tiers.append(p.refit())
+    new = _new_leaf_origins(p.jv, 3)
+    p.edit(new, [pal() for _ in new])            # voxels in new leaves
+    p.edit(new[0], pal())
+    tiers.append(p.refit())
+    p.edit(new[1], pal())                        # a leaf the splice added
+    p.edit((new[2][0] + 1, new[2][1], new[2][2]), pal())
+    p.edit(dup[0], None)
+    return tiers + [p.refit()]
+
+
 SEQUENCES = {
     "pillar_carve": (seq_pillar_carve, ["splice", "splice"]),
     "materials": (seq_materials, ["splice"]),
@@ -297,6 +341,7 @@ SEQUENCES = {
     "new_leaf": (seq_new_leaf, [None]),
     "first_and_last_leaf": (seq_first_and_last_leaf, ["leaf"]),
     "past_gi_cap": (seq_past_gi_cap, ["splice", "leaf"]),
+    "seeded_stream": (seq_seeded_stream, ["leaf", None, None, "leaf"]),
 }
 
 
@@ -396,12 +441,61 @@ def test_async_splice_matches_sync():
 
 def test_async_leaf_patch_applies_inline():
     p = Pair()
-    c = p.te._coords[0][0]
+    c = p.te.voxels(0)[0][0]
     p.edit(c, 9)
     out = p.te.refit_async()
     assert out is p.te.device and not p.te.refit_in_flight
     p.je.refit()
     assert p.te.last_refit_mode == p.je.last_refit_mode == "leaf"
+    _assert_scene_equal(p.te.device, p.je.device)
+
+
+def test_staged_rebuild_is_the_grid_at_staging(monkeypatch):
+    """The worker, held until released, builds from the grid as it stood
+    when ``refit_async`` staged it: the edits made in flight (the staged
+    voxel repainted, a clear, a voxel in another new leaf) leave the grid
+    as it was and stay pending, none lost, and the next refit lands them
+    as the reference lands them, refit after each batch."""
+    p = Pair()
+    release = threading.Event()
+    build = p.te._rebuild_geometry
+
+    def held(mid):
+        release.wait(60.0)
+        return build(mid)
+
+    monkeypatch.setattr(p.te, "_rebuild_geometry", held)
+    new = _new_leaf_origins(p.jv, 2)
+    _, vx = _occupied_leaf(p.jv)
+    staged = {new[0]: 5, vx[0]: 9}
+    flight = {new[0]: 6, vx[1]: None, new[1]: 7}
+    for c, v in staged.items():
+        p.te.set_voxel(0, c, v)
+    assert p.te.refit_async() is None
+    at_staging = p.te.voxels(0)
+    for c, v in flight.items():
+        p.te.set_voxel(0, c, v)
+    assert p.te.poll_refit() is None and p.te.refit_in_flight
+    release.set()
+    assert p.te.poll_refit(block=True) is not None
+    assert p.te._pending[0] == flight
+    for got, want in zip(p.te.voxels(0), at_staging):
+        np.testing.assert_array_equal(got, want)
+    geo = p.tv.geometries[0]
+    want = build_model_geometry(*at_staging, p.tv.palette, geo.size,
+                                geo.unit_size)
+    for f in dataclasses.fields(want.flat):
+        np.testing.assert_array_equal(getattr(geo.flat, f.name),
+                                      getattr(want.flat, f.name), f.name)
+    for f in ("materials", "avg_albedo"):
+        np.testing.assert_array_equal(getattr(geo, f), getattr(want, f), f)
+    p.te.refit()
+    for batch in (staged, flight):
+        for c, v in batch.items():
+            p.je.set_voxel(0, c, v)
+        p.je.refit()
+    assert p.te.last_refit_mode == p.je.last_refit_mode == "splice"
+    assert not p.te._pending[0]
     _assert_scene_equal(p.te.device, p.je.device)
 
 

@@ -265,29 +265,42 @@ EDITS = {
 }
 
 
+def _by_key(coords, idx):
+    """A voxel list sorted by coordinate key (x, y, z): (coords, idx)."""
+    coords = np.asarray(coords, np.int64)
+    order = np.argsort((coords[:, 0] << 16) | (coords[:, 1] << 8)
+                       | coords[:, 2])
+    return coords[order], np.asarray(idx)[order]
+
+
 @pytest.mark.parametrize("name", sorted(EDITS))
 def test_rebuild_geometry_matches_reference(name):
-    """The editor's splice and rebuild tiers' host build after each edit,
-    the port's against the reference editor's, and the port's against its
-    plain build of the same voxels."""
+    """The editor's splice and rebuild tiers' host build after each edit
+    (refit by the port's editor, merged by the reference's), the port's
+    against the reference editor's, and the port's against its plain
+    build of the same voxels. The two editors hold their voxels in
+    different orders: compared as sets, by key."""
     ed, jed = _teapot_editors()
     for op, coords, value in EDITS[name]:
+        if op == "first":
+            coords = ed.voxels(0)[0][:1]      # the port's first, on both
+        elif op == "clear_all":
+            coords = ed.voxels(0)[0]
         for e in (ed, jed):
-            if op == "first":
-                e.set_voxel(0, tuple(int(c) for c in e._coords[0][0]), value)
-            elif op == "clear_all":
-                e.set_voxels(0, e._coords[0], None)
-            else:
-                e.set_voxels(0, np.asarray(coords), value)
-        for e in (ed, jed):
-            e._merge_pending(0)
-        _equal(ed._coords[0], jed._coords[0], "coords")
+            e.set_voxels(0, np.asarray(coords), value)
+        ed.refit()
+        jed._merge_pending(0)
+        voxels = ed.voxels(0)
+        for got, want, what in zip(_by_key(*voxels),
+                                   _by_key(jed._coords[0], jed._idx[0]),
+                                   ("coords", "palette indices")):
+            _equal(got, want, what)
         got = ed._rebuild_geometry(0)
         _geometry_equal(got, jed._rebuild_geometry(0), name)
         geo = ed.vox_scene.geometries[0]
         _geometry_equal(got, loader.build_model_geometry_plain(
-            ed._coords[0], ed._idx[0], ed.vox_scene.palette, geo.size,
-            geo.unit_size), f"{name} plain")
+            *voxels, ed.vox_scene.palette, geo.size, geo.unit_size),
+            f"{name} plain")
     if name == "the model emptied":
         assert got.num_blocks == 0
 

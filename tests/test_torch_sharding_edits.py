@@ -63,13 +63,14 @@ def sequences(tmp_path_factory):
             for name in JOBS:
                 np.testing.assert_array_equal(res[name]["gi"],
                                               per_rank[0][name]["gi"])
-        out[("ref", n)] = _reference_sequence(n)
+        out[("ref", n)] = _reference_sequence(n, out[None]["jnp"]["voxel"])
     return out
 
 
-def _reference_sequence(n_devices):
+def _reference_sequence(n_devices, voxel):
     """tests/test_sharding_edits.py's ``_run_sequence`` at this size, on
-    ``n_devices`` virtual CPU devices: (frames, tiers, final table)."""
+    ``n_devices`` virtual CPU devices, its in-leaf edit at ``voxel`` (the
+    port's): (frames, tiers, final table)."""
     from dust_tpu import config as jconfig
     from dust_tpu.ops import camera as jcam
     from dust_tpu.ops.noise import load_blue_noise
@@ -105,7 +106,7 @@ def _reference_sequence(n_devices):
     frames, modes = [], []
     img, state = frame(scene, state)
     frames.append(img)
-    editor.set_voxel(mid, tuple(int(v) for v in editor._coords[mid][0]), 7)
+    editor.set_voxel(mid, voxel, 7)
     scene, state = editor.refit(state)
     modes.append(editor.last_refit_mode)
     img, state = frame(scene, state)
@@ -183,7 +184,7 @@ def test_leaf_tier_patches_the_rows_each_rank_holds(n):
                 state, gi=gilib.DenseGICache(table=table[lo:hi].clone()))
         editor = SceneEditor(vox, scene, mesh=mesh)
         mid = sorted(vox.geometries)[0]
-        for c in editor._coords[mid][:40:8]:
+        for c in editor.voxels(mid)[0][:40:8]:
             editor.set_voxel(mid, tuple(int(v) for v in c), 7)
         _scene, state = editor.refit(state)
         assert editor.last_refit_mode == "leaf"

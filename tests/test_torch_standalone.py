@@ -395,7 +395,7 @@ def test_splice_and_leaf_patch_on_the_card():
             [(b >> 4) & 3, (b >> 2) & 3, b & 3])), 11)
         scene, state = ed.refit(state)
         tiers.append(ed.last_refit_mode)
-        ed.set_voxel(0, tuple(int(v) for v in ed._coords[0][7]), 9)
+        ed.set_voxel(0, tuple(int(v) for v in ed.voxels(0)[0][7]), 9)
         scene, state = ed.refit(state)
         tiers.append(ed.last_refit_mode)
         runs.append((tiers, scene, state))

@@ -94,7 +94,8 @@ def edit_sequence(mesh, job, device="cpu") -> dict:
     """tests/test_sharding_edits.py's sequence on the teapot: frame, an
     in-leaf edit (the leaf tier), frame, an out-of-leaf edit (the splice
     tier), frame; with a mesh, ray-sharded. Returns the whole images,
-    the refit tiers and the final dense table."""
+    the refit tiers, the final dense table and the voxel the in-leaf
+    edit repainted."""
     from dust_tpu_torch.render.edits import SceneEditor
     from dust_tpu_torch.render.scene import build_device_scene
     from dust_tpu_torch.vox import procgen
@@ -123,8 +124,8 @@ def edit_sequence(mesh, job, device="cpu") -> dict:
         return state
 
     state = frame(scene, state)
-    c0 = editor._coords[mid][0]
-    editor.set_voxel(mid, tuple(int(v) for v in c0), 7)
+    out["voxel"] = tuple(int(v) for v in editor.voxels(mid)[0][0])
+    editor.set_voxel(mid, out["voxel"], 7)
     scene, state = editor.refit(state)
     out["modes"].append(editor.last_refit_mode)
     state = frame(scene, state)
