@@ -9,7 +9,9 @@ Usage: python3 benchmark/calibrate.py --workload <cell>
     --seeds 1,2,... --control-seeds 7,8,9 [--seconds 3]
 
 Prints one JSON line per seed and side, then the summary: each number's
-largest program reading and smallest control reading.
+largest program reading and smallest control reading. A ray-sharded
+cell runs each seed on its ranks (``benchmark/ranks.py``), the control
+on rank 0 beside the check.
 """
 
 import argparse
@@ -44,27 +46,38 @@ def main(argv=None) -> int:
     upper: dict = {}
     for seed in sorted(set(seeds) | set(controls)):
         t = time.perf_counter()
-        run, records, loop = harness.run_cell(cell, seed, args.seconds, False,
-                                              device, t)
-        recs = harness.host_records(loop, records)
-        ref = check.Reference(cell.config, cell.traffic, loop.path,
-                              loop.scene_bytes, device)
-        del loop
+        if cell.sharded:
+            from benchmark import ranks
+
+            report = ranks.run_cell(cell, seed, args.seconds, False, "cuda",
+                                    t, control=seed in controls)
+            program = {k: c["value"]
+                       for k, c in report["out"]["checks"].items()}
+            frames = report["out"]["attempted"]
+        else:
+            run, records, loop = harness.run_cell(cell, seed, args.seconds,
+                                                  False, device, t)
+            recs = harness.host_records(loop, records)
+            ref = harness.reference(cell, loop, device)
+            del loop
+            program = check.check(ref, recs) if seed in seeds else {}
+            report = dict(control=check.control(ref, recs)
+                          if seed in controls else {})
+            frames = run.frames
+            del ref, recs
+            torch.cuda.empty_cache()
         if seed in seeds:
-            nums = check.check(ref, recs)
-            print(json.dumps({"seed": seed, "side": "program", **nums}),
+            print(json.dumps({"seed": seed, "side": "program", **program}),
                   flush=True)
-            for k, v in nums.items():
+            for k, v in program.items():
                 lower[k] = max(lower.get(k, 0.0), v)
         if seed in controls:
-            nums = check.control(ref, recs)
+            nums = report["control"]
             print(json.dumps({"seed": seed, "side": "control", **nums}),
                   flush=True)
             for k, v in nums.items():
                 upper[k] = min(upper.get(k, float("inf")), v)
-        del ref, recs
-        torch.cuda.empty_cache()
-        print(f"# seed {seed}: {run.frames} frames, "
+        print(f"# seed {seed}: {frames} frames, "
               f"{time.perf_counter() - t:.1f} s", file=sys.stderr, flush=True)
     print(json.dumps({"workload": args.workload, "lower": lower,
                       "upper": upper}))

@@ -2,6 +2,12 @@
 rendered, against the plain reference (:mod:`benchmark.reference`) run
 on the same inputs.
 
+A ray-sharded cell is judged on the same numbers: its ranks' rows of
+each checked frame (the image rows, the aux images, the dense GI table's
+and the denoiser history's rows) assembled to the whole frame, the
+output as rank 0 presented it, against the reference's whole frame on
+the sharded frame's sun route (``fused_sun=False``).
+
 The reference builds its own scene from the run's ``.vox`` bytes and
 replays the edits that the program had applied before each checked frame;
 it bakes its own sky and cameras. A frame's state carries every frame
@@ -194,6 +200,7 @@ class Reference:
     path: inputs.Motion
     scene_bytes: bytes
     device: torch.device
+    fused_sun: bool = True  # False: the ray-sharded frame's sun route
 
     def __post_init__(self):
         self.settings = self._settings()
@@ -281,7 +288,7 @@ class Reference:
         cam = self.camera(rec["eye"])
         out, aux, new_state = ref_pipeline.render_frame(
             scene, state, cam, self.sky, self.bn_cosine, self.bn_scalar,
-            self.settings, lowp=lowp)
+            self.settings, lowp=lowp, fused_sun=self.fused_sun)
         return dict(out=out, aux=aux, state=new_state), scene
 
 

@@ -12,15 +12,29 @@ its splice (``refit_async``). While a splice is in flight the editor
 refuses a refit, so brush edits wait, pending, for the first refit after
 the swap. An edit's latency runs from its submission to the end of the
 first frame rendered from a scene that holds it.
+
+Under a mesh (a ray-sharded cell, ``benchmark/ranks.py``) every rank
+runs this loop over the same frames: the scene built from the run's
+bytes and replicated from rank 0 (``parallel.replicate_scene``: each
+rank's own build gives the host fields and the shapes the broadcast
+fills), the first state made whole and sharded
+(``parallel.shard_frame_state``), each frame rendered with the mesh.
+Present is the image assembled on rank 0 (``parallel.gather_image``),
+each rank's device synchronised, and rank 0's decision whether the
+window has closed carried to every rank (one broadcast of a flag). Rank
+0 alone runs the profiler; after the window the checked frames are
+assembled whole on rank 0 (:func:`host_records`) and checked there.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 
 import torch
+import torch.distributed as dist
 
 from benchmark import check as checklib
 from benchmark import devtrace, inputs, work
@@ -70,9 +84,11 @@ class Run:
 
 class Frames:
     """The program's frame loop of one cell: scene, editor, state,
-    camera path and edit stream; ``step()`` renders one frame."""
+    camera path and edit stream; ``step()`` renders one frame. ``mesh``:
+    this rank's ``dust_tpu_torch.parallel.Mesh`` (module docstring)."""
 
-    def __init__(self, cell: Cell, seed: int, device, run: Run):
+    def __init__(self, cell: Cell, seed: int, device, run: Run, mesh=None):
+        from dust_tpu_torch import parallel
         from dust_tpu_torch.config import RenderSettings
         from dust_tpu_torch.ops import camera as cameralib
         from dust_tpu_torch.ops.sky import bake_sky
@@ -81,8 +97,9 @@ class Frames:
         from dust_tpu_torch.render.scene import build_device_scene
         from dust_tpu_torch.vox.loader import load_vox_scene
 
-        self.cell, self.device, self.run = cell, device, run
+        self.cell, self.device, self.run, self.mesh = cell, device, run, mesh
         self.cameralib, self.render_frame = cameralib, render_frame
+        self.parallel = parallel
         self.path = inputs.Motion(cell.traffic, seed)
         self.settings = render_settings(RenderSettings, cell.config,
                                         cell.traffic)
@@ -90,6 +107,8 @@ class Frames:
         t = time.perf_counter()
         self.vox = load_vox_scene(self.scene_bytes)
         self.scene = build_device_scene(self.vox, device)
+        if mesh is not None:
+            self.scene = parallel.replicate_scene(self.scene, mesh)
         self.sync()
         run.scene_build_s = time.perf_counter() - t
         self.sky = bake_sky(self.settings.sunlight, device)
@@ -97,6 +116,8 @@ class Frames:
         self.bn_cosine = torch.as_tensor(cos, device=device)
         self.bn_scalar = torch.as_tensor(scalar, device=device)
         state = make_frame_state(self.settings, self.scene, device)
+        if mesh is not None:
+            state = parallel.shard_frame_state(state, mesh)
         self.state = dataclasses.replace(state, frame_index=self.path.noise0)
         names = [m["name"] for m in cell.config["scene"]["models"]]
         self.anim = (names.index(cell.config["scene"]["animated"])
@@ -121,10 +142,30 @@ class Frames:
         self.landed: list = []       # edits that land in this frame
         self.keep: set = set()       # frames whose record is kept
         self.records: dict = {}
+        self.close_at = math.inf     # rank 0's clock: the window's end
+        self.closed = False          # mesh: rank 0 saw the window close
+        if mesh is not None:         # the flag that carries it
+            self.flag = torch.zeros(1, dtype=torch.int32, device=device)
 
     def sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def present_sharded(self, out):
+        """Present under the mesh: the whole image on rank 0 (None on the
+        other ranks), every rank's work for the frame done, and rank 0's
+        decision whether the window has closed on every rank."""
+        mesh = self.mesh
+        out = self.parallel.gather_image(mesh, out, self.settings.height)
+        self.sync()
+        if mesh.rank == 0:
+            self.closed = time.perf_counter() >= self.close_at
+            self.flag.fill_(int(self.closed))
+        dist.broadcast(self.flag, src=0, group=mesh.group)
+        if mesh.rank != 0:
+            self.closed = bool(self.flag.item())
+            out = None
+        return out
 
     def camera(self, frame: int):
         s = self.settings
@@ -201,9 +242,12 @@ class Frames:
                 state_in = _copy(state_in)
             out, aux, self.state = self.render_frame(
                 self.scene, self.state, cam, self.sky, self.bn_cosine,
-                self.bn_scalar, self.settings, return_aux=True)
+                self.bn_scalar, self.settings, return_aux=True, mesh=self.mesh)
             with mark("bench.present"):
-                self.sync()
+                if self.mesh is None:
+                    self.sync()
+                else:
+                    out = self.present_sharded(out)
         end = time.perf_counter()
         self.run.edit_latencies_s += [end - self.submitted[i]
                                       for i in self.landed]
@@ -232,11 +276,12 @@ class Frames:
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
-             t_start: float) -> tuple[Run, dict, Frames]:
-    """Set-up, window and (with ``trace``) the traced slice. Returns the
-    run, the records of the checked frames (on the host) and the loop."""
+             t_start: float, mesh=None) -> tuple[Run, dict, Frames]:
+    """Set-up, window and (with ``trace``) the traced slice, which rank 0
+    alone profiles under a mesh. Returns the run, the records of the
+    checked frames and the loop."""
     run = Run(cell=cell)
-    loop = Frames(cell, seed, device, run)
+    loop = Frames(cell, seed, device, run, mesh)
     traffic = cell.traffic
     # Warm-up: the cell's own frames, edits and (edits) a landed splice.
     checked = cell.check["frames"]
@@ -264,10 +309,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     loop.timing = True
     prof = None
     slice_frames = traffic["trace_frames"]
+    profiling = trace and (mesh is None or mesh.rank == 0)
     run.t0 = time.perf_counter()
+    loop.close_at = run.t0 + seconds
     while True:
         k = loop.frame - first
-        if trace and k == SLICE_START:
+        if profiling and k == SLICE_START:
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA])
             prof.__enter__()
@@ -282,8 +329,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             prof.__exit__(None, None, None)
             run.trace = devtrace.read(prof, slice_frames)
             prof = None
-        if run.ends[-1] - run.t0 >= seconds and (
-                not trace or run.trace is not None):
+        closed = (run.ends[-1] - run.t0 >= seconds if mesh is None
+                  else loop.closed)
+        if closed and (not trace or k >= SLICE_START + slice_frames - 1):
             break
     # The first frame after the window: checked as "after", and in place
     # of the seeded frame when the window closed before it. In a cell
@@ -304,10 +352,71 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     return run, loop.records, loop
 
 
+def _whole_rows(mesh, t: torch.Tensor):
+    """Every rank's rows of ``t``, in rank order, on rank 0's host (None
+    on the other ranks): two all-gathers of the harness's own, the row
+    counts and the rows padded to the most."""
+    dev = mesh.device
+    counts = [torch.zeros(1, dtype=torch.int64, device=dev)
+              for _ in range(mesh.size)]
+    dist.all_gather(counts, torch.tensor([t.shape[0]], device=dev),
+                    group=mesh.group)
+    counts = [int(c) for c in counts]
+    x = t.to(dev).contiguous()
+    if max(counts) > x.shape[0]:
+        x = torch.cat([x, x.new_zeros((max(counts) - x.shape[0],)
+                                      + x.shape[1:])])
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    dist.all_gather(parts, x, group=mesh.group)
+    if mesh.rank != 0:
+        return None
+    return torch.cat([p[:c] for p, c in zip(parts, counts)]).cpu()
+
+
+def _whole_state(mesh, state):
+    """A sharded frame state made whole on rank 0's host: the dense GI
+    table's and the denoiser history's rows from every rank
+    (``parallel.shard_frame_state``'s layout), every replicated field
+    from rank 0."""
+    if state is None:
+        return None
+    table = state.gi.table
+    table = (_whole_rows(mesh, table) if table.shape[1] == 3
+             else table.cpu())
+    history = _whole_rows(mesh, state.denoiser.history)
+    if mesh.rank != 0:
+        return None
+    return _copy(dataclasses.replace(
+        state, gi=type(state.gi)(table=table),
+        denoiser=type(state.denoiser)(history=history)), "cpu")
+
+
+def _whole_record(mesh, rec: dict) -> dict | None:
+    """One checked frame's record made whole on rank 0's host: the aux
+    images' rows from every rank (a scalar, the exposure, from rank 0),
+    both states whole; the output is the image rank 0 presented."""
+    aux = {k: v.cpu() if v.dim() == 0 else _whole_rows(mesh, v)
+           for k, v in rec["aux"].items()}
+    state_in = _whole_state(mesh, rec["state_in"])
+    state_out = _whole_state(mesh, rec["state_out"])
+    if mesh.rank != 0:
+        return None
+    rest = {k: v for k, v in rec.items()
+            if k not in ("aux", "state_in", "state_out")}
+    return dict(_copy(rest, "cpu"), aux=aux, state_in=state_in,
+                state_out=state_out)
+
+
 def host_records(loop: Frames, records: dict) -> list:
     """The checked frames' inputs and outputs copied to the host, in frame
-    order; the program's own objects (scene, editor, state) are dropped."""
-    recs = [_copy(dict(records[f]), "cpu") for f in sorted(records)]
+    order; the program's own objects (scene, editor, state) are dropped.
+    Under a mesh every rank takes part, and the records, whole, are rank
+    0's (none on the other ranks)."""
+    if loop.mesh is None:
+        recs = [_copy(dict(records[f]), "cpu") for f in sorted(records)]
+    else:
+        recs = [_whole_record(loop.mesh, records[f]) for f in sorted(records)]
+        recs = [] if loop.mesh.rank != 0 else recs
     records.clear()
     for name in ("scene", "state", "editor", "vox", "records"):
         loop.__dict__.pop(name, None)
@@ -316,14 +425,30 @@ def host_records(loop: Frames, records: dict) -> list:
     return recs
 
 
+def reference(cell: Cell, loop: Frames, device) -> checklib.Reference:
+    """The check's reference for ``loop``'s run, on the sharded frame's
+    sun route for a ray-sharded cell."""
+    return checklib.Reference(cell.config, cell.traffic, loop.path,
+                              loop.scene_bytes, device,
+                              fused_sun=not cell.sharded)
+
+
+def hdda_least_s(ref: checklib.Reference, mesh=None) -> float:
+    """The least time of a frame's HDDA launches on the reference's scene
+    (rank 0's launches under ``mesh``), for the roofline."""
+    least, _bound_by = work.least_time_s(
+        work.hdda_passes(ref.scene, ref.settings,
+                         None if mesh is None else mesh.size),
+        work.model_leaves(ref.scene), ref.scene.num_instances)
+    return least
+
+
 def check_records(cell: Cell, loop: Frames, records: dict, device,
                   run: Run) -> dict:
     """The program's checked frames against the reference, and the
-    frame's HDDA least time for the roofline."""
+    frame's HDDA least time for the roofline (one card; a sharded run
+    checks on rank 0, ``benchmark/ranks.py``)."""
     recs = host_records(loop, records)
-    ref = checklib.Reference(cell.config, cell.traffic, loop.path,
-                             loop.scene_bytes, device)
-    run.hdda_least_s, _bound_by = work.least_time_s(
-        work.hdda_passes(ref.scene, ref.settings),
-        work.model_leaves(ref.scene), ref.scene.num_instances)
+    ref = reference(cell, loop, device)
+    run.hdda_least_s = hdda_least_s(ref)
     return checklib.check(ref, recs)

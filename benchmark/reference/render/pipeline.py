@@ -3,6 +3,11 @@ the port's frame without a mesh, every trace through the plain walk of
 :mod:`benchmark.reference.ops.hdda` in the order and modes of the
 kernel's backend (8×128-pixel tiles, the fused ao_fg sun ray).
 
+``render_frame(..., fused_sun=False)`` follows the port's ray-sharded
+frame: reference-mode sun shadows as two plain launches, ao_threshold
+then rough, in place of the fused ao_fg walk (a grazing sun ray may end
+otherwise than in the fused walk); every other trace is the same.
+
 ``render_frame(..., lowp=True)`` is the control of the benchmark's
 check: every float tensor handed from one stage to the next (ray origins
 and directions, the G-buffer, the shading terms, the surfel rays and
@@ -217,10 +222,11 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
                  sky_state: skylib.SkyModelState, bn_cosine: torch.Tensor,
                  bn_scalar: torch.Tensor, settings: RenderSettings,
-                 lowp: bool = False):
+                 lowp: bool = False, fused_sun: bool = True):
     """Render one frame. Returns (output_srgb (H, W, 3), aux dict, new
     state), as the port's ``render_frame(..., return_aux=True)`` without a
-    mesh. ``lowp``: the control (module docstring)."""
+    mesh, or with ``fused_sun=False`` the whole frame of its sharded
+    frame. ``lowp``: the control (module docstring)."""
     _check_settings(settings)
     if settings.instance_materials and any(settings.instance_materials):
         raise ValueError("the frozen frame covers palette materials only")
@@ -269,11 +275,16 @@ def render_frame(scene, state: FrameState, cam: cameralib.CameraSettings,
         if settings.shadow_mode == "precise":
             occluded = trace(scene, hit_loc, sun_rays, 0.1, s_tmax,
                              "precise").hit
-        else:
+        elif fused_sun:
             s_ao, s_fg = hdda.trace_scene_ao_fg(
                 scene, hit_loc, sun_rays, 0.1, fill(facing, sthr, -1.0),
                 s_tmax)
             occluded = s_ao.hit | s_fg.hit
+        else:
+            occluded = (
+                trace(scene, hit_loc, sun_rays, 0.1, fill(facing, sthr, -1.0),
+                      "ao_threshold").hit
+                | trace(scene, hit_loc, sun_rays, sthr, s_tmax, "rough").hit)
         unoccluded = facing & ~occluded
         direct = direct + torch.where(
             unoccluded[:, None], strength * torch.clamp(ndl, min=0.0)[:, None],

@@ -20,6 +20,13 @@ landed), ``metrics``, ``device`` and, traced, ``breakdown``; last,
 standard error. The run exits non-zero and prints no result without a
 CUDA device (or with fewer than the cell asks for), without the port,
 or when ``jax``, ``jaxlib``, ``flax`` or ``dust_tpu`` was loaded.
+
+A ray-sharded cell (``spec.Cell.sharded``) runs as ``chips`` ranks, one
+process per card (``benchmark/ranks.py``); this process starts and
+watches them and prints rank 0's result once every rank has ended well.
+Its metrics are rank 0's clock and trace, ``memory_peak_bytes`` the
+largest over the ranks. A rank that fails ends the run: every rank is
+killed, nothing is printed to standard output, and the exit code is 6.
 """
 
 import time
@@ -61,6 +68,21 @@ def card_name() -> str:
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi failed: {e}"
     return out.stdout.strip().splitlines()[0] if out.stdout else out.stderr
+
+
+def summary_lines(workload: str, seed: int, run, check_s: float) -> list:
+    """The run's summary for standard error: frames, set-up, the check's
+    time, the card, and ``frame_ms`` by third of the window."""
+    import torch
+
+    thirds = [run.ends[k * run.frames // 3:(k + 1) * run.frames // 3]
+              for k in range(3)]
+    return [f"# {workload} seed {seed}: {run.frames} frames, set-up "
+            f"{run.setup_s:.3f} s, check {check_s:.3f} s, {card_name()}, "
+            f"torch {torch.__version__}",
+            "# frame_ms by third of the window: " + ", ".join(
+                f"{1e3 * (t[-1] - t[0]) / max(len(t) - 1, 1):.3f}"
+                for t in thirds if t)]
 
 
 def result_line(cell, run, nums: dict, device_info: dict, trace: bool):
@@ -107,31 +129,44 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"run: the port is not in this checkout: {e}", file=sys.stderr)
         return 4
-    device = torch.device("cuda", 0)
-    run, records, loop = harness.run_cell(cell, args.seed, args.seconds,
-                                          bool(args.trace), device, T_START)
-    torch.cuda.synchronize(device)
-    device_info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                   "count": cell.chips,
-                   "memory_peak_bytes": torch.cuda.max_memory_allocated(device)}
-    if run.trace is not None:
-        device_info.update(busy_s=run.trace.busy_s, window_s=run.trace.wall_s)
-    found = forbidden_modules()
-    if found:
-        print(f"run: JAX packages were loaded: {found}", file=sys.stderr)
-        return 5
-    t = time.perf_counter()
-    nums = harness.check_records(cell, loop, records, device, run)
-    check_s = time.perf_counter() - t
-    out = result_line(cell, run, nums, device_info, bool(args.trace))
-    print(f"# {args.workload} seed {args.seed}: {run.frames} frames, "
-          f"set-up {run.setup_s:.3f} s, check {check_s:.3f} s, "
-          f"{card_name()}, torch {torch.__version__}", file=sys.stderr)
-    thirds = [run.ends[k * run.frames // 3:(k + 1) * run.frames // 3]
-              for k in range(3)]
-    print("# frame_ms by third of the window: " + ", ".join(
-        f"{1e3 * (t[-1] - t[0]) / max(len(t) - 1, 1):.3f}" for t in thirds
-        if t), file=sys.stderr)
+    if cell.sharded:
+        from benchmark import ranks
+
+        try:
+            report = ranks.run_cell(cell, args.seed, args.seconds,
+                                    bool(args.trace), "cuda", T_START)
+        except ranks.RankFailed as e:
+            print(f"run: {e}", file=sys.stderr)
+            return 6
+        found = sorted(set(report["forbidden"]) | set(forbidden_modules()))
+        if found:
+            print(f"run: JAX packages were loaded: {found}", file=sys.stderr)
+            return 5
+        out, lines = report["out"], report["lines"]
+    else:
+        device = torch.device("cuda", 0)
+        run, records, loop = harness.run_cell(cell, args.seed, args.seconds,
+                                              bool(args.trace), device,
+                                              T_START)
+        torch.cuda.synchronize(device)
+        device_info = {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": cell.chips,
+            "memory_peak_bytes": torch.cuda.max_memory_allocated(device)}
+        if run.trace is not None:
+            device_info.update(busy_s=run.trace.busy_s,
+                               window_s=run.trace.wall_s)
+        found = forbidden_modules()
+        if found:
+            print(f"run: JAX packages were loaded: {found}", file=sys.stderr)
+            return 5
+        t = time.perf_counter()
+        nums = harness.check_records(cell, loop, records, device, run)
+        out = result_line(cell, run, nums, device_info, bool(args.trace))
+        lines = summary_lines(args.workload, args.seed, run,
+                              time.perf_counter() - t)
+    for line in lines:
+        print(line, file=sys.stderr)
     for name, c in out["checks"].items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",
               file=sys.stderr)

@@ -5,7 +5,13 @@ traffic mix (``benchmark/traffic/<traffic>.json``), each cell's check
 ``benchmark/checks/<workload>.json``) and each metric's reader
 (``benchmark/metrics/<name>.py``, a ``read(run)`` function). Adding a
 configuration, a mix, a cell or a metric adds files and entries and
-edits none."""
+edits none. A metric with no ``workloads`` list is reported in every
+cell; a per-layer one, in every cell that reports the end-to-end metric
+it ``moves``.
+
+A configuration whose file has ``"parallel": {"shard": "rays"}`` runs
+its cells ray-sharded: one process per card, ``chips`` ranks, the
+program's sharded frame (``benchmark/ranks.py``)."""
 
 from __future__ import annotations
 
@@ -30,14 +36,25 @@ class Cell:
     end_to_end: list
     per_layer: list
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the cell runs ray-sharded over ``chips`` ranks."""
+        return "parallel" in self.config
+
 
 def load_json(path: Path) -> dict:
     with open(path) as f:
         return json.load(f)
 
 
-def _applies(metric: dict, workload: str) -> bool:
-    return "workloads" not in metric or workload in metric["workloads"]
+def _applies(metric: dict, workload: str, reported=None) -> bool:
+    """Whether ``metric`` is reported in ``workload``: in the cells it
+    lists; with no list, in every cell, or, for a per-layer metric (given
+    the cell's end-to-end names ``reported``), in every cell that reports
+    the end-to-end metric it moves."""
+    if "workloads" in metric:
+        return workload in metric["workloads"]
+    return reported is None or metric["moves"] in reported
 
 
 def load_cell(workload: str, root: Path = ROOT) -> Cell:
@@ -62,18 +79,34 @@ def make_cell(workload: str, chips: int, config_file: str, traffic: str,
     ``root/BENCHMARK.json`` that apply to it."""
     bench = load_json(root / "BENCHMARK.json")
     data = root / "benchmark"
-    return Cell(
+    end_to_end = [m for m in bench["end_to_end"] if _applies(m, workload)]
+    reported = {m["name"] for m in end_to_end}
+    cell = Cell(
         name=workload, chips=chips, config=load_json(root / config_file),
         traffic=load_json(data / "traffic" / f"{traffic}.json"),
         check=load_json(data / "checks" / f"{workload}.json"),
-        end_to_end=[m for m in bench["end_to_end"] if _applies(m, workload)],
-        per_layer=[m for m in bench["per_layer"] if _applies(m, workload)])
+        end_to_end=end_to_end,
+        per_layer=[m for m in bench["per_layer"]
+                   if _applies(m, workload, reported)])
+    parallel = cell.config.get("parallel")
+    if parallel is not None and parallel != {"shard": "rays"}:
+        raise ValueError(f"{config_file}: \"parallel\" is {parallel!r}; the "
+                         f"harness runs {{\"shard\": \"rays\"}} alone")
+    if cell.sharded and cell.traffic["edits"]:
+        raise ValueError(f"cell {workload}: a ray-sharded configuration "
+                         f"with edits ({traffic}) is not run; the harness "
+                         f"drives the scene editor on one card only")
+    return cell
 
 
 def metric_reader(name: str, root: Path = ROOT):
     """The ``read(run)`` function of metric ``name``, in
-    ``root/benchmark/metrics/<name>.py``."""
+    ``root/benchmark/metrics/<name>.py``. A name ``<base>.<group>`` with
+    no file of its own reads as ``<base>``: one quantity split by the
+    end-to-end metric it moves in a group of cells."""
     path = root / "benchmark" / "metrics" / f"{name}.py"
+    if not path.is_file() and "." in name:
+        return metric_reader(name.rsplit(".", 1)[0], root)
     module_spec = importlib.util.spec_from_file_location(
         f"benchmark.metrics.{name}", path)
     module = importlib.util.module_from_spec(module_spec)

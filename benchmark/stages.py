@@ -178,6 +178,10 @@ def main(argv=None) -> int:
         print("stages: needs a CUDA device", file=sys.stderr)
         return 3
     cell = spec.load_cell(args.workload)
+    if cell.sharded:
+        print("stages: a ray-sharded cell is traced by run.py --trace 1 "
+              "alone (rank 0's slice)", file=sys.stderr)
+        return 2
     sl, st = trace_slice(cell, args.seed, torch.device("cuda", 0))
     out = dict(workload=args.workload, seed=args.seed, frames=st.frames,
                device_total_ms=1e3 * sum(sl.device_ops.values()) / sl.frames,

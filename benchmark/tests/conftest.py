@@ -2,6 +2,7 @@
 root of the repository. Tests that need the card are marked ``gpu`` and
 skip without one; the decision is made in the ``card`` fixture."""
 
+import json
 import sys
 from pathlib import Path
 
@@ -15,9 +16,7 @@ if str(ROOT) not in sys.path:
 # Cells whose files are kept under ``benchmark/`` but that are not in
 # ``BENCHMARK.json`` yet: name -> (chips, configuration file, mix).
 HELD = {"hash-orbit-1080p": (1, "benchmark/configs/castle-hash.json",
-                             "orbit-1080p"),
-        "dense-edits-1080p": (1, "benchmark/configs/castle-dense.json",
-                              "edits-1080p")}
+                             "orbit-1080p")}
 
 
 def load_cell(workload: str):
@@ -73,3 +72,35 @@ def run_tiny(workload: str, seed: int, seconds: float = 1.0,
                                           time.perf_counter())
     nums = harness.check_records(cell, loop, records, device, run)
     return result_line(cell, run, nums, {}, trace), run
+
+
+def sharded_cell(tmp_path, ranks: int):
+    """A ray-sharded cell of ``ranks`` ranks: castle-dense's file with
+    ``"parallel": {"shard": "rays"}``, copied under ``tmp_path``, on the
+    orbit-1080p mix and ``dense-orbit-1080p``'s check (the start, a
+    seeded frame and the one after the window), at :func:`tiny` size."""
+    from benchmark import spec
+
+    config = spec.load_json(ROOT / "benchmark/configs/castle-dense.json")
+    config["parallel"] = {"shard": "rays"}
+    path = tmp_path / "castle-dense-sharded.json"
+    path.write_text(json.dumps(config))
+    return tiny(spec.make_cell("dense-orbit-1080p", ranks, str(path),
+                               "orbit-1080p"))
+
+
+def run_sharded_tiny(cell, seed: int, seconds: float = 1.0,
+                     trace: bool = False, hook: str | None = None,
+                     control: bool = False) -> dict:
+    """A whole run of the sharded ``cell`` on its ranks under gloo on the
+    CPU; ``hook`` (a function of ``test_harness_faults``, by name) may
+    break the port in every rank. Returns rank 0's report
+    (``ranks.run_cell``)."""
+    import time
+
+    from benchmark import ranks
+
+    if hook is not None:
+        hook = f"test_harness_faults:{hook}"
+    return ranks.run_cell(cell, seed, seconds, trace, "cpu",
+                          time.perf_counter(), hook=hook, control=control)

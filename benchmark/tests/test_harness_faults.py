@@ -1,14 +1,26 @@
 """A run with the timed path broken underneath comes out as not correct:
 the rest of the run is the harness's own (the look for a card skipped,
-a tiny size on the CPU). One test for each fault the cells can have; a
-cell on one card has no exchange between chips to leave out."""
+a tiny size on the CPU). One test for each fault the cells can have. A
+ray-sharded cell runs on 2 and 4 gloo ranks, each a process of its own,
+and has the exchange between ranks to leave out (a rank's rows of the
+presented image) and a rank's share of the state to drop (its rows of
+the GI table, not handed on). Its sun route, two launches in place of
+the fused one, is held by ``test_harness_work.py``: the fused walk
+answered every sun ray tried alike, so no number can see a swap. Those
+faults are
+planted in every rank by a hook of this module, called with the mesh
+before the run; so are a rank that raises and a rank that is killed,
+which end the run with no result."""
 
 import dataclasses
+import os
+import signal
+import time
 
 import pytest
 import torch
 
-from conftest import run_tiny
+from conftest import run_sharded_tiny, run_tiny, sharded_cell
 
 
 def _state_unchanged(render):
@@ -147,3 +159,104 @@ def test_unbroken_run_is_correct():
     out, _run = run_tiny("dense-orbit-1080p", seed=2**31 + 23)
     assert out["correct"], out["checks"]
     assert dataclasses.is_dataclass(_run)
+
+
+# ---------------------------------------------------------------- sharded
+# Hooks: each is called with the mesh in every rank before the run.
+
+def image_rows_left_out(mesh):
+    """The presented image's gather leaves the last rank's rows out."""
+    from dust_tpu_torch import parallel
+
+    gather = parallel.gather_image
+
+    def left_out(mesh, rows, height):
+        whole = gather(mesh, rows, height).clone()
+        whole[(mesh.size - 1) * mesh.chunk(height):] = 0.0
+        return whole
+    parallel.gather_image = left_out
+
+
+def gi_rows_not_handed_on(mesh):
+    """The last rank hands on its rows of the dense GI table as it got
+    them: its share of the frame's refresh is lost."""
+    from dust_tpu_torch.render import pipeline
+
+    render = pipeline.render_frame
+
+    def frame(scene, state, *a, **k):
+        old = state.gi.table.clone()
+        out, aux, new = render(scene, state, *a, **k)
+        if mesh.rank == mesh.size - 1:
+            new = dataclasses.replace(new, gi=type(new.gi)(table=old))
+        return out, aux, new
+    pipeline.render_frame = frame
+
+
+def _on_rank_one(mesh, act):
+    """Rank 1 runs ``act()`` in its fifth frame (the window's third)."""
+    from dust_tpu_torch.render import pipeline
+
+    render = pipeline.render_frame
+    frames = [0]
+
+    def frame(*a, **k):
+        frames[0] += 1
+        if mesh.rank == 1 and frames[0] == 5:
+            act()
+        return render(*a, **k)
+    pipeline.render_frame = frame
+
+
+def rank_raises(mesh):
+    def act():
+        raise RuntimeError("a planted fault")
+    _on_rank_one(mesh, act)
+
+
+def rank_killed(mesh):
+    _on_rank_one(mesh, lambda: os.kill(os.getpid(), signal.SIGKILL))
+
+
+SHARDED_FAULTS = {"image_rows_left_out": "output_rel",
+                  "gi_rows_not_handed_on": "state_rel"}
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_sharded_run_is_correct(tmp_path, ranks):
+    """A whole sharded run at the tiny size reads 0.0 on every number: at
+    128x72 the exposure's bin sum (at most 255 a pixel, 9,216 pixels) is
+    below 2^24, so its float32 all-reduce rounds nowhere, and nothing
+    else the sharded frame computes differs from the whole frame."""
+    out = run_sharded_tiny(sharded_cell(tmp_path, ranks), seed=2**31 + 41,
+                           trace=True)["out"]
+    assert out["correct"], out["checks"]
+    assert all(c["value"] == 0.0 for c in out["checks"].values()), out
+    assert out["device"]["count"] == ranks
+    assert "hdda_launches_per_frame" in {k.split(".")[0]
+                                         for k in out["metrics"]}
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("fault", sorted(SHARDED_FAULTS))
+def test_sharded_fault_is_not_correct(tmp_path, ranks, fault):
+    out = run_sharded_tiny(sharded_cell(tmp_path, ranks), seed=2**31 + 43,
+                           hook=fault)["out"]
+    assert not out["correct"], out["checks"]
+    c = out["checks"][SHARDED_FAULTS[fault]]
+    assert c["value"] > c["limit"], out["checks"]
+
+
+@pytest.mark.parametrize("fault", ["rank_raises", "rank_killed"])
+def test_failed_rank_ends_the_run(tmp_path, fault):
+    """A rank that raises, or is killed, in the window ends the run at
+    once: every other rank is killed and there is no result, well within
+    the collectives' timeout."""
+    from benchmark import ranks
+
+    code = {"rank_raises": 1, "rank_killed": -signal.SIGKILL}[fault]
+    t = time.monotonic()
+    with pytest.raises(ranks.RankFailed, match=f"rank 1 with code {code}"):
+        run_sharded_tiny(sharded_cell(tmp_path, 4), seed=2**31 + 47,
+                         seconds=30.0, hook=fault)
+    assert time.monotonic() - t < 120.0

@@ -16,7 +16,8 @@ def test_tiny_run_is_correct(workload):
     assert all(c["value"] == 0.0 for c in out["checks"].values())
     assert run.frames >= 1 and out["failed"] == 0
     names = set(out["metrics"])
-    assert {"frame_ms", "frame_ms_p95", "setup_s"} <= names
+    assert names == {m["name"] for m in spec.load_cell(workload).end_to_end}
+    assert {"frame_ms_p95", "setup_s"} <= names
     if workload == "dense-edits-1080p":
         assert run.edit_latencies_s and min(run.edit_latencies_s) > 0.0
         for name in ("edit_latency_ms_p95", "edit_call_ms"):

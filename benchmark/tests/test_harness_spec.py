@@ -32,9 +32,42 @@ def test_cell_finds_its_files(workload):
         else set()
     numbers |= {"scene_words"} if cell.traffic["edits"] else set()
     assert set(cell.check["limits"]) == numbers
-    assert {m["name"] for m in cell.end_to_end} >= {"frame_ms", "setup_s"}
+    assert {m["name"] for m in cell.end_to_end} >= {"frame_ms_p95", "setup_s"}
     for m in cell.end_to_end + cell.per_layer:
         assert callable(spec.metric_reader(m["name"]))
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_per_layer_metrics_move_what_the_cell_reports(workload):
+    """A cell's per-layer metrics each move one of its end-to-end metrics,
+    and it reports one besides ``setup_s``."""
+    cell = spec.load_cell(workload)
+    e2e = {m["name"] for m in cell.end_to_end}
+    assert "setup_s" in e2e and len(e2e) >= 2
+    assert cell.per_layer
+    for m in cell.per_layer:
+        assert m["moves"] in e2e, (workload, m["name"])
+
+
+def test_a_split_metric_reads_as_its_base(tmp_path):
+    """``<base>.<group>`` with no reader of its own reads as ``<base>``; a
+    name with a reader of its own keeps it; an unknown base is an
+    error."""
+    metrics = tmp_path / "benchmark" / "metrics"
+    metrics.mkdir(parents=True)
+    (metrics / "frames_seen.py").write_text(
+        "def read(run):\n    return float(run.frames)\n")
+    (metrics / "frames_seen.own.py").write_text(
+        "def read(run):\n    return -1.0\n")
+
+    class Run:
+        frames = 7
+
+    read = spec.metric_reader("frames_seen.tail", tmp_path)
+    assert read(Run()) == 7.0
+    assert spec.metric_reader("frames_seen.own", tmp_path)(Run()) == -1.0
+    with pytest.raises(FileNotFoundError):
+        spec.metric_reader("frames_unseen.tail", tmp_path)
 
 
 def test_names_and_units():
@@ -87,7 +120,10 @@ def test_new_config_mix_cell_and_metric_from_files_alone(tmp_path):
         json.dumps({"frames": ["start"], "limits": {"output_rel": 0.1}}))
     (tmp_path / "benchmark/metrics/frames_seen.py").write_text(
         "def read(run):\n    return float(run.frames)\n")
-    bench = dict(BENCH, configs=[{
+    # The new cell reports frame_ms: it joins the metric's list of cells.
+    e2e = [dict(m, workloads=m["workloads"] + ["other-orbit-1440p"])
+           if "workloads" in m else m for m in BENCH["end_to_end"]]
+    bench = dict(BENCH, end_to_end=e2e, configs=[{
         "name": "castle-other", "source": "s", "why": "w", "reduced": [],
         "file": "benchmark/configs/castle-other.json"}], workloads=[{
         "name": "other-orbit-1440p", "config": "castle-other",

@@ -26,3 +26,32 @@ def test_p95_interpolates():
     values = [float(v) for v in range(1, 21)]
     assert stats.p95(values) == pytest.approx(19.05)
     assert stats.p95([3.0]) == 3.0
+
+
+def test_tail_cells_mean_leaves_out_the_traced_slice():
+    """``frame_ms.tail``: untraced, the whole window; traced, the frames
+    after the first one past the slice, whose time holds the slice's
+    reading."""
+    import types
+
+    from benchmark import harness, spec
+
+    read = spec.metric_reader("frame_ms.tail")
+    t0, n, slice_frames = 10.0, 30, 6
+    ends = [t0 + 0.02 * (k + 1) for k in range(n)]
+    cell = types.SimpleNamespace(traffic={"trace_frames": slice_frames})
+    run = types.SimpleNamespace(cell=cell, t0=t0, ends=ends, trace=None)
+    assert read(run) == pytest.approx(20.0)
+    # Traced: the slice's frames take 0.1 s each and the first frame after
+    # it 3 s more (the reading); the mean leaves all of that out.
+    first = harness.SLICE_START + slice_frames
+    traced, t = [], t0
+    for k in range(n):
+        t += 0.1 if harness.SLICE_START <= k < first else 0.02
+        t += 3.0 if k == first else 0.0
+        traced.append(t)
+    run = types.SimpleNamespace(cell=cell, t0=t0, ends=traced, trace=object())
+    assert read(run) == pytest.approx(20.0)
+    assert stats.mean_frame(t0, traced) > 0.1
+    run.ends = traced[:first + 1]
+    assert read(run) is None

@@ -16,6 +16,12 @@ counting 2); the walk's own steps depend on the data and are not
 counted, so the count is a floor. The rays of each pass come from the
 frozen ray accounting (:func:`~benchmark.reference.render.pipeline.
 frame_ray_count`).
+
+Under a mesh of N ranks the count is rank 0's: each pass at its padded
+chunk of that pass's rays, ceil(rays / N) (every rank traces as many,
+the last padding with inactive rays), and reference-mode sun shadows as
+the two launches the sharded frame takes in place of the fused one,
+ao_threshold then rough.
 """
 
 from __future__ import annotations
@@ -31,18 +37,29 @@ L2_BYTES = 4096 * 4 * 4
 LEAF_BYTES = 8
 
 
-def hdda_passes(scene, settings) -> list[tuple[str, int]]:
-    """(mode, rays) of each HDDA launch of one frame, in frame order."""
+def hdda_passes(scene, settings,
+                ranks: int | None = None) -> list[tuple[str, int]]:
+    """(mode, rays) of each HDDA launch of one frame, in frame order;
+    with ``ranks``, of rank 0's launches under a mesh of that many ranks
+    (module docstring)."""
     n = settings.width * settings.height
-    passes = [("precise", n)]
+
+    def chunk(rays: int) -> int:
+        return rays if ranks is None else -(-rays // ranks)
+
+    passes = [("precise", chunk(n))]
     if settings.contribution_direct:
-        passes.append(("precise", n) if settings.shadow_mode == "precise"
-                      else ("ao_fg", n))
+        if settings.shadow_mode == "precise":
+            passes.append(("precise", chunk(n)))
+        elif ranks is None:
+            passes.append(("ao_fg", n))
+        else:
+            passes += [("ao_threshold", chunk(n)), ("rough", chunk(n))]
     total = frame_ray_count(scene, settings)
     gi_rays = total - 4 * n
     if gi_rays > 0:
-        passes += [("ao_threshold", n), ("rough", n)]
-        surfel = gi_rays // 2
+        passes += [("ao_threshold", chunk(n)), ("rough", chunk(n))]
+        surfel = chunk(gi_rays // 2)
         if settings.contribution_secondary_sunlight:
             passes.append(("rough", surfel))
         passes.append(("rough", surfel))
